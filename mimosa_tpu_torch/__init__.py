@@ -1,0 +1,31 @@
+"""mimosa_tpu_torch — the PyTorch/CUDA port of ``mimosa_tpu``.
+
+The streaming geometric LiDAR-inertial scan step (deskew -> downsample ->
+predict/append -> Gauss-Newton with live point-to-plane ICP -> prior
+absorption -> keyframe map update), written as plain functions on torch
+tensors. The fused ICP reduction, the one kernel the JAX package wrote in
+Pallas (``mimosa_tpu/ops/icp_pallas.py``), is a hand-written CUDA kernel
+for Hopper here (``ops/icp_cuda.py``, ``csrc/icp_linearize.cu``).
+
+The package mirrors ``mimosa_tpu/`` module for module and imports neither
+``jax`` nor ``mimosa_tpu``: the JAX package stays the reference the port is
+tested against (``tests/test_torch_*.py``).
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# The window's normal equations mix information scales of 1e7 and 1e-1;
+# reduced-precision (TF32) products make the Schur marginalization go NaN —
+# the counterpart of the JAX package's "highest" matmul precision pin.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+
+def require_cuda() -> _torch.device:
+    """The first CUDA device; raises when no card is visible."""
+    if not _torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available "
+                           "(torch.cuda.is_available() is False)")
+    return _torch.device("cuda", 0)

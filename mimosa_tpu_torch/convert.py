@@ -1,0 +1,94 @@
+"""State carried across between the JAX package and the port.
+
+This system has no weights: what a run carries is its state — the window
+(estimates + Gaussian prior), the voxel map, the stacked IMU
+preintegration segments, the logging rings and the host bookkeeping. The
+JAX package's state is handed over as numpy arrays (``np.asarray`` of each
+field, keyed by the same field names), so this module needs neither jax
+nor ``mimosa_tpu``:
+
+    state = {"window": {...}, "vmap": {...}, "preints": {...},
+             "fv": ..., "kf_q": ..., "kf_p": ..., "kf_count": ...,
+             "traj_q": ..., "traj_p": ..., "debug_rec": ...,
+             "host": {...}, "imu": {"ts": ..., "acc": ..., "gyro": ...}}
+
+``load_sequencer_state`` starts a port Sequencer from such a state and
+``sequencer_state`` reads one back, so a test can run both packages from
+the same window and map and compare them field by field.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from mimosa_tpu_torch.graph.window import Window
+from mimosa_tpu_torch.imu.preintegration import PreintState
+from mimosa_tpu_torch.mapping.voxel_hash import VoxelMap
+
+# device-resident sequencer fields besides the three state tuples
+SEQ_ARRAYS = ("fv", "kf_q", "kf_p", "kf_count", "traj_q", "traj_p",
+              "debug_rec")
+# host bookkeeping that must travel with the device state
+SEQ_HOST = ("n_active", "initialized", "scan_idx", "last_state_ts",
+            "state_ts", "counters", "_traj_ts", "_traj_src")
+_TUPLES = (("window", Window), ("vmap", VoxelMap), ("preints", PreintState))
+
+
+def to_numpy(x):
+    """A tensor, or a NamedTuple of tensors, as numpy (a dict by field)."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return {k: to_numpy(v) for k, v in x._asdict().items()}
+
+
+def from_numpy(a, device=None, dtype=torch.float32):
+    """numpy -> tensor on ``device``; floating arrays take ``dtype``,
+    integer and bool arrays keep their type."""
+    a = np.asarray(a)
+    t = torch.from_numpy(np.array(a))
+    if a.dtype.kind == "f":
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def tuple_from_numpy(cls, arrs, device=None, dtype=torch.float32):
+    """A Window / VoxelMap / PreintState from a dict of numpy arrays."""
+    missing = set(cls._fields) - set(arrs)
+    if missing:
+        raise KeyError(f"{cls.__name__} fields missing: {sorted(missing)}")
+    return cls(**{k: from_numpy(arrs[k], device, dtype)
+                  for k in cls._fields})
+
+
+def sequencer_state(seq) -> dict:
+    """The port Sequencer's full state as numpy + plain Python values."""
+    state = {name: to_numpy(getattr(seq, name)) for name, _ in _TUPLES}
+    state.update({name: to_numpy(getattr(seq, name)) for name in SEQ_ARRAYS})
+    state["host"] = {k: copy.deepcopy(getattr(seq, k)) for k in SEQ_HOST}
+    state["imu"] = dict(ts=seq.imu.ts.copy(), acc=seq.imu.acc.copy(),
+                        gyro=seq.imu.gyro.copy())
+    return state
+
+
+def load_sequencer_state(seq, state: dict):
+    """Replace a port Sequencer's state with ``state`` (see module doc);
+    shapes must match the Sequencer's configuration."""
+    dev, dt = seq.device, seq.dtype
+    for name, cls in _TUPLES:
+        new = tuple_from_numpy(cls, state[name], dev, dt)
+        for k, old in zip(cls._fields, getattr(seq, name)):
+            if tuple(getattr(new, k).shape) != tuple(old.shape):
+                raise ValueError(f"{name}.{k}: shape {tuple(old.shape)} "
+                                 f"expected, got "
+                                 f"{tuple(getattr(new, k).shape)}")
+        setattr(seq, name, new)
+    for name in SEQ_ARRAYS:
+        setattr(seq, name, from_numpy(state[name], dev, dt))
+    for k in SEQ_HOST:
+        setattr(seq, k, copy.deepcopy(state["host"][k]))
+    imu = state["imu"]
+    seq.imu.load(imu["ts"], imu["acc"], imu["gyro"])
+    return seq

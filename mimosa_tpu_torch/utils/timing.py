@@ -1,0 +1,41 @@
+"""Per-stage host wall-clock timing (port of ``mimosa_tpu/utils/timing.py``).
+
+Host clock only: a stage that launches device work measures the enqueue
+unless it ends in ``torch.cuda.synchronize()``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+
+
+class StageTimer:
+    """Accumulates per-stage wall times and counts across iterations.
+
+    >>> t = StageTimer()
+    >>> with t.stage("deskew"):
+    ...     work()
+    >>> t.summary()   # {'deskew': {'total_s': ..., 'count': ..., 'mean_ms': ...}}
+    """
+
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def summary(self):
+        return {
+            k: dict(total_s=self.totals[k], count=self.counts[k],
+                    mean_ms=self.totals[k] / max(self.counts[k], 1) * 1e3)
+            for k in sorted(self.totals)
+        }

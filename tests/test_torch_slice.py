@@ -1,0 +1,283 @@
+"""The port's geometric LiDAR-inertial slice against the JAX package.
+
+* configs: the dataclasses carry the same fields and defaults;
+* synthetic data: the port's numpy generator equals the JAX one;
+* one scan step from a state carried across (``mimosa_tpu_torch.convert``)
+  gives the same window, map and debug row;
+* a short room replay through both packages: both ATEs under 0.10 m and
+  within 5 mm of each other. The estimator is chaotic near tracking loss,
+  so replays are compared by ATE, not pose by pose (the largest pose
+  difference is printed, not gated);
+* importing the port pulls in neither jax nor mimosa_tpu.
+"""
+
+import copy
+import dataclasses
+import gc
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mimosa_tpu.graph import sequencer as jseq
+from mimosa_tpu.graph import window as jwin
+from mimosa_tpu.io import synthetic as jsyn
+from mimosa_tpu.lidar import geometric as jgeo
+from mimosa_tpu.mapping import voxel_hash as jvh
+from mimosa_tpu_torch import convert
+from mimosa_tpu_torch.graph import sequencer as tseq
+from mimosa_tpu_torch.graph import window as twin
+from mimosa_tpu_torch.io import synthetic as tsyn
+from mimosa_tpu_torch.io import synthetic_replay as trep
+from mimosa_tpu_torch.lidar import geometric as tgeo
+from mimosa_tpu_torch.mapping import voxel_hash as tvh
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_programs():
+    """Free the XLA:CPU programs this module compiled (the reason is in
+    test_torch_core.py)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
+
+@pytest.mark.parametrize("pair", [
+    (jseq.SequencerConfig, tseq.SequencerConfig),
+    (jwin.WindowConfig, twin.WindowConfig),
+    (jvh.VoxelMapConfig, tvh.VoxelMapConfig),
+    (jgeo.GeometricConfig, tgeo.GeometricConfig),
+], ids=lambda p: p[0].__name__)
+def test_config_fields_and_defaults_match(pair):
+    j, t = pair
+    assert [(f.name, f.default) for f in dataclasses.fields(t)] == \
+        [(f.name, f.default) for f in dataclasses.fields(j)]
+    assert tseq.DBG_W == jseq.DBG_W
+
+
+def test_generate_matches_jax():
+    # t_total 3.5 crosses the smoothstep's end at t = 3.2, where an IMU
+    # sample sits exactly on the clip bound
+    tc = dict(t_total=3.5)
+    lm = dict(n_rows=8, n_cols=128)
+    j = jsyn.generate(jsyn.room_world(), jsyn.TrajectoryConfig(**tc),
+                      jsyn.LidarModel(**lm), seed=3, imu_noise=0.01,
+                      range_noise=0.01)
+    t = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(**tc),
+                      tsyn.LidarModel(**lm), seed=3, imu_noise=0.01,
+                      range_noise=0.01)
+    assert 3.2 in t["imu"]["ts"]
+    for k in ("ts", "acc", "gyro"):
+        np.testing.assert_allclose(t["imu"][k], j["imu"][k], rtol=1e-9,
+                                   atol=1e-9)
+    for k in ("ts", "pos", "quat"):
+        np.testing.assert_allclose(t["gt"][k], j["gt"][k], rtol=1e-9,
+                                   atol=1e-9)
+    assert len(t["scans"]) == len(j["scans"]) > 10
+    for st, sj in zip(t["scans"], j["scans"]):
+        assert st["ts_header"] == sj["ts_header"]
+        np.testing.assert_array_equal(st["valid"], sj["valid"])
+        np.testing.assert_array_equal(st["t_rel"], sj["t_rel"])
+        # f32 points from f64 raycasts through poses equal to ~1e-15
+        np.testing.assert_allclose(st["points"], sj["points"], atol=1e-5)
+        np.testing.assert_allclose(st["intensity"], sj["intensity"],
+                                   atol=1e-3)
+
+
+# ------------------------------------------------------- replay through both
+
+SEQ_KW = dict(max_scan_points=1024, n_geo_points=1024, n_map_points=2048,
+              geo_leaf=0.4, map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
+              keyframe_rot_thresh=0.15, n_gn_iters=3,
+              quantize_transfer=False)
+WIN_KW = dict(K=4)
+# 1 m voxels: at 8x128 rays a 0.4 m grid gets under one point per voxel
+# per scan, so the first scans track on ~10 inliers and both packages'
+# replays go chaotic; at 1 m every scan has 200+ inliers
+MAP_KW = dict(leaf_size=1.0, capacity_log2=13, plane_min_points=5,
+              lru_horizon=0)
+GEO_KW = dict(sigma=0.05, loc_count_thresh=50.0)
+N_CARRY = 4          # add_scan calls before the carried state: init + 3
+
+
+def _port_sequencer():
+    return tseq.Sequencer(tseq.SequencerConfig(**SEQ_KW),
+                          twin.WindowConfig(**WIN_KW),
+                          tvh.VoxelMapConfig(**MAP_KW),
+                          tgeo.GeometricConfig(**GEO_KW))
+
+
+def _jax_state(s):
+    """A JAX Sequencer's state in convert's numpy layout."""
+    st = {name: {k: np.asarray(v) for k, v in getattr(s, name)._asdict()
+                 .items()} for name in ("window", "vmap", "preints")}
+    st.update({name: np.asarray(getattr(s, name))
+               for name in convert.SEQ_ARRAYS})
+    st["host"] = {k: copy.deepcopy(getattr(s, k)) for k in convert.SEQ_HOST}
+    st["imu"] = dict(ts=s.imu.ts.copy(), acc=s.imu.acc.copy(),
+                     gyro=s.imu.gyro.copy())
+    return st
+
+
+@pytest.fixture(scope="module")
+def jax_replay():
+    """The short room replay through the JAX package, with its state
+    snapshot before and after the (N_CARRY+1)-th scan."""
+    data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
+        t_total=3.0), tsyn.LidarModel(n_rows=8, n_cols=128), seed=0)
+    s = jseq.Sequencer(jseq.SequencerConfig(**SEQ_KW),
+                       jwin.WindowConfig(**WIN_KW),
+                       jvh.VoxelMapConfig(**MAP_KW),
+                       jgeo.GeometricConfig(**GEO_KW), dtype=jnp.float32)
+    imu_i = 0
+    snaps = {}
+    for k in range(len(data["scans"])):
+        if k == N_CARRY:
+            snaps["before"] = (_jax_state(s), imu_i)
+        imu_i = trep.feed(s, data, k, imu_i)
+        if k == N_CARRY:
+            snaps["after"] = _jax_state(s)
+    return dict(data=data, snaps=snaps, trajectory=s.trajectory,
+                counters=dict(s.counters))
+
+
+def _close(out, ref, rtol, floor):
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    np.testing.assert_allclose(out, ref, rtol=rtol,
+                               atol=floor * max(np.abs(ref).max(), 1e-30))
+
+
+def test_carried_state_scan_step_matches_jax(jax_replay):
+    """From the JAX state after init + 3 scans (the window is then full, so
+    the step also marginalizes), one add_scan in each package."""
+    data = jax_replay["data"]
+    before, imu_i = jax_replay["snaps"]["before"]
+    ref = jax_replay["snaps"]["after"]
+    s = convert.load_sequencer_state(_port_sequencer(), before)
+    assert s.n_active == WIN_KW["K"]
+    trep.feed(s, data, N_CARRY, imu_i)
+    out = convert.sequencer_state(s)
+    assert out["host"] == ref["host"]
+
+    # window: GN from the same state, f32 sums in another order
+    w, wr = out["window"], ref["window"]
+    for k in ("q", "p", "v", "g_dir", "lin_q", "lin_p", "lin_v"):
+        np.testing.assert_allclose(w[k], wr[k], atol=1e-4)
+    for k in ("bg", "ba", "lin_bg", "lin_ba"):
+        np.testing.assert_allclose(w[k], wr[k], atol=1e-4)
+    np.testing.assert_array_equal(w["active"], wr["active"])
+    _close(w["H_prior"], wr["H_prior"], rtol=1e-2, floor=1e-4)
+
+    # map: the same voxels, counts and plane flags; f32 moment sums
+    m, mr = out["vmap"], ref["vmap"]
+    for k in ("coords", "occupied", "last_touch", "plane_valid"):
+        np.testing.assert_array_equal(m[k][:-1], mr[k][:-1])
+    np.testing.assert_array_equal(m["n"], mr["n"])
+    for k in ("psum", "pssum", "mean"):
+        _close(m[k], mr[k], rtol=1e-4, floor=1e-5)
+    # valid planes: the same normal up to its sign (the sign is arbitrary
+    # and cancels in J r and J J^T); other voxels' normals are unused
+    ok = mr["plane_valid"]
+    assert ok.sum() > 50
+    np.testing.assert_allclose(
+        np.abs(np.sum(m["normal"][ok] * mr["normal"][ok], axis=-1)), 1.0,
+        atol=1e-4)
+
+    # the scan's debug row: counts and flags exact, the absorbed pose
+    # information and IMU eigenvalues to f32 precision of the solve
+    row, rowr = out["debug_rec"][N_CARRY - 1], ref["debug_rec"][N_CARRY - 1]
+    assert row[0] > 300
+    np.testing.assert_array_equal(row[:5], rowr[:5])
+    np.testing.assert_array_equal(row[6:17], rowr[6:17])
+    np.testing.assert_allclose(row[5], rowr[5], rtol=1e-3)
+    _close(row[17:38], rowr[17:38], rtol=1e-3, floor=1e-4)
+    _close(row[38:47], rowr[38:47], rtol=1e-2, floor=1e-4)
+    np.testing.assert_allclose(out["traj_p"], ref["traj_p"], atol=1e-4)
+
+
+def test_short_replay_ate_matches_jax(jax_replay):
+    data = jax_replay["data"]
+    s = _port_sequencer()
+    trep.replay(s, data)
+    assert s.counters == jax_replay["counters"]
+    ate_t = trep.trajectory_ate(s, data)
+    jt = jax_replay["trajectory"]
+    ate_j = tsyn.ate_rmse(np.asarray([t for t, _, _ in jt]),
+                          np.asarray([p for _, p, _ in jt]),
+                          data["gt"]["ts"], data["gt"]["pos"])
+    pt = np.asarray([p for _, p, _ in s.trajectory])
+    pj = np.asarray([p for _, p, _ in jt])
+    print(f"short replay ATE: port {ate_t:.5f} m, JAX {ate_j:.5f} m; "
+          f"largest pose difference {np.abs(pt - pj).max():.2e} m")
+    assert ate_t < 0.10 and ate_j < 0.10
+    assert abs(ate_t - ate_j) < 0.005
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mimosa_tpu_torch as m\n"
+        "names = [i.name for i in pkgutil.walk_packages(m.__path__, "
+        "'mimosa_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'mimosa_tpu' or "
+        "k.startswith('mimosa_tpu.'))\n"
+        "assert len(names) > 12, names\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sequencer_refuses_unported_settings():
+    for kw in (dict(), dict(quantize_transfer=False, rescue_enabled=True),
+               dict(quantize_transfer=False, range_transfer=True)):
+        with pytest.raises(NotImplementedError):
+            tseq.Sequencer(tseq.SequencerConfig(**kw))
+    assert tseq.Sequencer().cfg.quantize_transfer is False
+
+
+def test_add_imu_batch_matches_add_imu():
+    data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
+        t_total=0.5), tsyn.LidarModel(n_rows=2, n_cols=16), seed=2)
+    imu = data["imu"]
+    one, batch = _port_sequencer(), _port_sequencer()
+    for ts, acc, gyro in zip(imu["ts"], imu["acc"], imu["gyro"]):
+        one.add_imu(ts, acc, gyro)
+    batch.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    assert len(imu["ts"]) == 100
+    for k in ("ts", "acc", "gyro"):
+        np.testing.assert_array_equal(getattr(batch.imu, k),
+                                      getattr(one.imu, k))
+
+
+def test_sequencer_cpu_run_launches_no_kernel(tmp_path):
+    """On CPU tensors the step takes the plain ICP version every time; the
+    run's trajectory, TUM log and debug records are complete."""
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
+        t_total=1.6), tsyn.LidarModel(n_rows=8, n_cols=128), seed=1)
+    before = icp_cuda.LAUNCHES
+    s = _port_sequencer()
+    trep.replay(s, data)
+    assert s.scan_idx >= 2
+    assert icp_cuda.LAUNCHES == before
+    traj = np.asarray([p for _, p, _ in s.trajectory])
+    assert np.isfinite(traj).all() and len(traj) == len(s._traj_ts)
+    assert torch.isfinite(s.window.H_prior).all()
+    dbg = s.debug_records()
+    assert dbg.shape == (s.scan_idx, 17)
+    assert (dbg[:, 0] > 0).all() and (dbg[:, 0] == dbg[:, 1]).all()
+    s.write_tum(tmp_path / "traj.tum")
+    rows = np.loadtxt(tmp_path / "traj.tum")
+    assert rows.shape == (len(traj), 8)
+    np.testing.assert_allclose(rows[:, 1:4], traj, rtol=1e-6)
+    # TUM orders the quaternion x y z w
+    q = np.asarray([q for _, _, q in s.trajectory])
+    np.testing.assert_allclose(rows[:, 4:], q[:, [1, 2, 3, 0]], rtol=1e-6)
