@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stage-split   # only the per-stage split (6.)
 
 Drives the port (``mimosa_tpu_torch``) through its main path on the card
 and prints one line per phase; any failure raises, so the exit code is
@@ -11,21 +12,31 @@ of the JAX package.
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles ``mimosa_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
    ``build/mimosa_tpu_torch/``;
-3. kernel: the ICP reduction against its plain PyTorch version on a
-   synthetic room scene at N = 8192 and N = 4133 (status and localizability
-   counts exact, H and b to rtol 2e-4 / atol 2e-2, two launches bitwise
-   equal, 4-DoF on, rotation threshold != translation threshold) and the
-   median time of each over 50 calls (CUDA events);
+3. kernel: the ICP linearization (one cluster launch a call) against its
+   plain PyTorch version on a synthetic room scene at N = 8192, 4096 and
+   4133 (status and localizability counts and flags exact, H and b to
+   rtol 2e-4 / atol 2e-2, two launches bitwise equal, 4-DoF on, rotation
+   threshold != translation threshold), the kernel's eigen-analysis
+   against torch eigh3 in f64 on the kernel's own blocks (eigenvalues
+   within 1e-4 max|lambda|, eigenvectors |v . v_ref| >= 1 - 1e-4), the
+   median time of each over 50 calls (CUDA events), the wrapper's host
+   time a call back to back, the device kernels and device time a call
+   (profiler: one kernel a call), and the SM clocks of the kernel's
+   phases (its optional trace, median of 50 launches);
 4. slice: the Sequencer at the widths of ``__graft_entry__.entry()``
    (32768 points a scan, 8192 ICP points, K=8, 2^18 voxels) on a room
-   sequence from a 64x512 LiDAR: finite poses, ATE < 0.08 m, and the ICP
-   kernel launched (n_gn_iters + 1) times per scan step;
-5. room_clean: ``mimosa_tpu_torch.io.synthetic_replay.run(device="cuda")``
-   with ATE < 0.010 m.
+   sequence from a 64x512 LiDAR, on the default device (the card): finite
+   poses, ATE < 0.08 m, and the ICP kernel launched (n_gn_iters + 1) times
+   per scan step;
+5. room_clean: ``mimosa_tpu_torch.io.synthetic_replay.run()`` on the
+   default device, with ATE < 0.010 m;
+6. with ``--stage-split`` and nothing else: the entry-width replay with a
+   device synchronize and a host clock around each stage of the scan
+   step, printing host ms a scan step by stage (no JSON lines).
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
-of the kernel (launches on the main path, error and times).
+of the kernel (launches on the main path, error, times and bound).
 """
 
 import json
@@ -38,6 +49,17 @@ import numpy as np
 import torch
 
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-2)   # the JAX Pallas test's H/b gate
+EIGVAL_TOL = 1e-4                          # of max |lambda|
+EIGVEC_TOL = 1e-4                          # 1 - |v . v_ref|
+# the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
+# f32 flop/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+# flops the linearization needs: per point (world point 18, residual 8,
+# |p| gate 11, R^T n 15, j_rot 9, weights 2, the 21 + 6 + 12 weighted and
+# unweighted sums 117, sum |r| 2) and per inlier (6 projections of 3)
+FLOPS_POINT = 182
+FLOPS_INLIER = 30
 ENTRY_ATE_GATE = 0.08                      # room_noisy's gate
 ROOM_CLEAN_ATE_GATE = 0.010                # ACCURACY.md room_clean gate
 
@@ -47,11 +69,11 @@ def check(cond, what):
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def nvidia_smi_line():
+def nvidia_smi(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()
     return out[0]
 
 
@@ -72,25 +94,12 @@ def cuda_ms(fn, n=50, warmup=5):
     return statistics.median(times)
 
 
-def kernel_only_ms(matches, pts, valid, q, t, cfg, n_calls=200):
-    """The kernel's own three launches per call, without the wrapper's
-    torch ops around them: (device ms of the three kernels from a profile
-    of n_calls calls, host-clock ms per call of n_calls back-to-back
-    calls, which the enqueue bounds)."""
+def wrapper_profile(call, n_calls=200):
+    """(device ms a call of the ICP kernel, ICP kernels the profiler
+    recorded over n_calls calls, host-clock ms a call of n_calls
+    back-to-back calls). Fails if the calls put any other work on the
+    device."""
     from torch.profiler import ProfilerActivity, profile
-
-    from mimosa_tpu_torch.core import lie
-    from mimosa_tpu_torch.ops import icp_cuda
-
-    normal, mean, found = matches
-    R = lie.quat_to_mat(q)
-    rt = torch.cat([R.reshape(9), t]).contiguous()
-    vecs = torch.eye(3, device=pts.device).repeat(2, 1).reshape(-1)
-
-    def call():
-        icp_cuda._launch_sums(pts, normal, mean, found, valid, rt, cfg)
-        icp_cuda._launch_loc_counts(pts, normal, mean, found, valid, rt,
-                                    vecs, cfg)
 
     for _ in range(10):
         call()
@@ -105,18 +114,78 @@ def kernel_only_ms(matches, pts, valid, q, t, cfg, n_calls=200):
         for _ in range(n_calls):
             call()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "icp_" in e.name]
-    check(len(kernels) == 3 * n_calls, f"the profiler saw {len(kernels)} "
-          f"ICP kernels in {n_calls} calls, expected {3 * n_calls}")
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if "icp_" in e.name]
+    check(len(kernels) == len(device), "the wrapper issued device work "
+          f"besides its kernel: {sorted({e.name for e in device})}")
+    # the profiler may drop a few records at the edges of its window, so
+    # the count is held to at most one kernel a call (the three-launch
+    # design gave three) and to most calls
+    check(0.9 * n_calls <= len(kernels) <= n_calls, f"the profiler saw "
+          f"{len(kernels)} ICP kernels in {n_calls} calls, expected one a "
+          "call")
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return device_ms / n_calls, host_ms
+    return device_ms / len(kernels), len(kernels), host_ms
+
+
+def eigen_check(out, f32):
+    """(max |lambda - lambda_ref| / max |lambda_ref|, min |v . v_ref|) of the
+    kernel's eigen-analysis against torch eigh3 in f64 on its own blocks."""
+    from mimosa_tpu_torch.core.eigh3 import eigh3
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    lam_err, dot_min = 0.0, 1.0
+    for k, (lam, V) in enumerate(((out.eigvals_rot, out.eigvecs_rot),
+                                  (out.eigvals_trans, out.eigvecs_trans))):
+        lam_ref, V_ref = eigh3(icp_cuda.blocks(f32)[k].double())
+        scale = max(lam_ref.abs().max().item(), 1e-30)
+        lam_err = max(lam_err,
+                      (lam.double() - lam_ref).abs().max().item() / scale)
+        dots = (V.double() * V_ref).sum(0).abs()
+        dot_min = min(dot_min, dots.min().item())
+    return lam_err, dot_min
+
+
+def kernel_trace(args, g_dir, n_runs=50):
+    """Median SM clocks of each phase of the kernel over n_runs launches,
+    from its optional trace: {phase: cycles}."""
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    trace = torch.zeros(len(icp_cuda.TRACE_POINTS), dtype=torch.int64,
+                        device=args[1].device)
+    rows = []
+    for _ in range(n_runs):
+        icp_cuda.launch(*args, g_dir=g_dir, trace=trace)
+        rows.append(trace.clone())
+    t = torch.stack(rows).cpu()
+    cycles = torch.cat([t[:, 1:] - t[:, :-1], t[:, -1:] - t[:, :1]], 1)
+    med = cycles.double().median(0).values.tolist()
+    return dict(zip(icp_cuda.TRACE_POINTS[1:] + ("entry to flags",), med))
+
+
+def bound(n, n_inlier):
+    """(least ms the card could take, what bounds it): each input read
+    once (points, normals, means [N,3] f32, two byte masks, q, t, g_dir),
+    each output written once (the three result buffers), and the flops
+    this run's inliers need."""
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    out_bytes = (4 * icp_cuda.SIZES[icp_cuda.F32]
+                 + 4 * icp_cuda.SIZES[icp_cuda.I32]
+                 + icp_cuda.SIZES[icp_cuda.U8])
+    nbytes = n * (3 * 12 + 2) + 4 * (4 + 3 + 3) + out_bytes
+    flops = FLOPS_POINT * n + FLOPS_INLIER * n_inlier
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
 def room_scene(dev, n_per=6000, noise=0.003, seed=0):
     """Room cloud (floor, ceiling, three walls) inserted into a port voxel
-    map at leaf 0.4 — the scene of tests/test_icp.py."""
+    map at leaf 0.4 — the scene of tests/test_icp.py. The map is built on
+    the CPU, where its float sums have one order, so every run holds the
+    kernel against its plain version on the same bits."""
     from mimosa_tpu_torch.mapping import voxel_hash as vh
 
     rng = np.random.default_rng(seed)
@@ -125,14 +194,14 @@ def room_scene(dev, n_per=6000, noise=0.003, seed=0):
         p = rng.uniform(0.2, 3.8, size=(n_per, 3))
         p[:, axis] = val + rng.normal(size=n_per) * noise
         clouds.append(p)
-    pts = torch.tensor(np.concatenate(clouds), dtype=torch.float32,
-                       device=dev)
+    pts = torch.tensor(np.concatenate(clouds), dtype=torch.float32)
     cfg = vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=16,
                             plane_min_points=5)
-    m = vh.insert(vh.create(cfg, dev), pts,
-                  torch.ones(len(pts), dtype=torch.bool, device=dev),
-                  torch.zeros((), dtype=torch.int32, device=dev), cfg)
-    return vh.update_planes(m, cfg), cfg, pts
+    m = vh.insert(vh.create(cfg, "cpu"), pts,
+                  torch.ones(len(pts), dtype=torch.bool),
+                  torch.zeros((), dtype=torch.int32), cfg)
+    m = vh.update_planes(m, cfg)
+    return type(m)(*(x.to(dev) for x in m)), cfg, pts.to(dev)
 
 
 def kernel_phase(dev):
@@ -141,6 +210,7 @@ def kernel_phase(dev):
     from mimosa_tpu_torch.ops import icp_cuda
 
     vmap, map_cfg, world = room_scene(dev)
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     cfg = geo.GeometricConfig(loc_count_thresh=30.0,
                               loc_count_thresh_rot=400.0, use_4dof=True)
     g_dir = torch.tensor([0.02, -0.01, -1.0], device=dev)
@@ -159,11 +229,12 @@ def kernel_phase(dev):
         valid[-50:] = False
         matches = geo.match(vmap, pts, q, t, map_cfg)
         args = (matches, pts, valid, q, t, cfg)
-        out = icp_cuda.linearize(*args, g_dir=g_dir)
-        again = icp_cuda.linearize(*args, g_dir=g_dir)
+        bufs = icp_cuda.launch(*args, g_dir=g_dir)
+        again = icp_cuda.launch(*args, g_dir=g_dir)
+        out = icp_cuda.unpack(*bufs)
         ref = geo.linearize_with(*args, g_dir=g_dir)
         torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+        check(all(torch.equal(a, b) for a, b in zip(bufs, again)),
               f"N={n}: two launches on the same inputs differ")
         for name in ("num_inlier", "status_counts", "loc_counts_rot",
                      "loc_counts_trans", "degenerate_rot",
@@ -179,17 +250,38 @@ def kernel_phase(dev):
                   f"{(o - r).abs().max().item()}")
         err = max((out.H - ref.H).abs().max().item(),
                   (out.b - ref.b).abs().max().item())
-        ms = cuda_ms(lambda: icp_cuda.linearize(*args, g_dir=g_dir))
+        lam_err, dot_min = eigen_check(out, bufs[0])
+        check(lam_err <= EIGVAL_TOL, f"N={n}: kernel eigenvalues differ from "
+              f"torch eigh3 by {lam_err:.3e} of max |lambda|")
+        check(dot_min >= 1 - EIGVEC_TOL, f"N={n}: a kernel eigenvector is "
+              f"off torch eigh3's: |v . v_ref| = {dot_min:.8f}")
+
+        def call():
+            return icp_cuda.linearize(*args, g_dir=g_dir)
+
+        ms = cuda_ms(call)
         plain_ms = cuda_ms(lambda: geo.linearize_with(*args, g_dir=g_dir))
-        dev_ms, enq_ms = kernel_only_ms(*args)
+        dev_ms, n_kernels, host_ms = wrapper_profile(call)
+        phases = kernel_trace(args, g_dir)
+        inliers = int(out.num_inlier)
+        bound_ms, bound_by, nbytes = bound(n, inliers)
         results[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          inliers=int(out.num_inlier))
+                          device_ms=dev_ms, host_ms=host_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          inliers=inliers)
         print(f"[kernel] N={n}: counts/flags exact, bitwise repeatable, "
-              f"max |dH|,|db| = {err:.3e}; wrapper {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 50 calls); the three kernels "
-              f"alone {1e3 * dev_ms:.2f} us device time a call (profiler), "
-              f"{1e3 * enq_ms:.2f} us a call back-to-back (host clock); "
-              f"inliers {int(out.num_inlier)}", flush=True)
+              f"max |dH|,|db| = {err:.3e}; eigen vs torch eigh3 (f64, own "
+              f"blocks): max |dlambda| {lam_err:.3e} of max |lambda|, min "
+              f"|v . v_ref| {dot_min:.9f}; wrapper {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median of 50 calls, CUDA events); "
+              f"wrapper {host_ms:.4f} ms a call back to back (host clock); "
+              f"{n_kernels} ICP kernels and no other device op in 200 calls, "
+              f"{1e3 * dev_ms:.3f} us device time a kernel (profiler); bound {1e3 * bound_ms:.4f} us by "
+              f"{bound_by} ({nbytes} B); inliers {inliers}", flush=True)
+        print(f"[kernel] N={n} phases, median SM cycles of 50 traced "
+              f"launches (us at the {mhz:g} MHz max SM clock): " + ", ".join(
+                  f"{k} {c:.0f} ({c / mhz:.3f})" for k, c in phases.items()),
+              flush=True)
     return results
 
 
@@ -224,16 +316,15 @@ def device_busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
-def slice_phase(dev):
-    from torch.profiler import ProfilerActivity, profile
-
+def entry_replay(**device):
+    """(Sequencer at the widths of ``__graft_entry__.entry()``, its 4 s
+    room sequence from a 64x512 LiDAR); ``device`` as the Sequencer takes
+    it, the default device where not given."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.io import synthetic as syn
-    from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
     from mimosa_tpu_torch.lidar import geometric as geo
     from mimosa_tpu_torch.mapping import voxel_hash as vh
-    from mimosa_tpu_torch.ops import icp_cuda
 
     data = syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=4.0),
                         syn.LidarModel(n_rows=64, n_cols=512), seed=0)
@@ -245,8 +336,18 @@ def slice_phase(dev):
         win.WindowConfig(K=8),
         vh.VoxelMapConfig(capacity_log2=18, leaf_size=0.4,
                           plane_min_points=5, lru_horizon=0),
-        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0),
-        device=dev)
+        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), **device)
+    check(s.device.type == "cuda", f"the Sequencer chose {s.device}")
+    return s, data
+
+
+def slice_phase():
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    s, data = entry_replay()
     n_scans = len(data["scans"])
     n_prof = 3                # the last scans run under the profiler
     torch.cuda.reset_peak_memory_stats()
@@ -287,10 +388,75 @@ def slice_phase(dev):
     return launches
 
 
+# stages of the scan step timed by --stage-split: (module, function, name)
+STAGES = (
+    ("mimosa_tpu_torch.lidar.deskew", "deskew", "deskew"),
+    ("mimosa_tpu_torch.imu.preintegration", "preintegrate", "preintegrate"),
+    ("mimosa_tpu_torch.graph.sequencer", "voxel_downsample", "downsample"),
+    ("mimosa_tpu_torch.lidar.geometric", "match", "match"),
+    ("mimosa_tpu_torch.ops.icp_cuda", "linearize", "ICP linearize"),
+    ("mimosa_tpu_torch.graph.window", "imu_factor_cache", "imu_factor_cache"),
+    ("mimosa_tpu_torch.graph.window", "build_system", "build_system"),
+    ("mimosa_tpu_torch.graph.window", "solve", "solve"),
+    ("mimosa_tpu_torch.graph.window", "apply_update", "apply_update"),
+    ("mimosa_tpu_torch.graph.window", "rebase_prior", "rebase + absorb"),
+    ("mimosa_tpu_torch.graph.window", "add_measurement_block",
+     "rebase + absorb"),
+    ("mimosa_tpu_torch.graph.sequencer", "_keyframe_map_update",
+     "keyframe + map update"),
+    ("mimosa_tpu_torch.imu.preintegration", "localizability",
+     "IMU localizability"),
+    ("mimosa_tpu_torch.graph.sequencer", "_marginalize", "marginalize"),
+)
+
+
+def stage_split_phase():
+    """The entry-width replay with a device synchronize and a host clock
+    around each stage function of the step: host ms a scan step of each
+    stage (nested stages count in both: deskew's preintegration, the map
+    update's downsample). Passes the device explicitly, so the same split
+    runs against a tree whose Sequencer has another default."""
+    import importlib
+
+    from mimosa_tpu_torch import require_cuda
+
+    s, data = entry_replay(device=require_cuda())
+    acc, calls, saved = {}, {}, []
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+            calls[name] = calls.get(name, 0) + 1
+            return out
+        return wrapper
+
+    for mod_name, fn_name, name in STAGES:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, fn_name, getattr(mod, fn_name)))
+        setattr(mod, fn_name, timed(name, getattr(mod, fn_name)))
+    try:
+        ms, _ = replay_timed(s, data, range(len(data["scans"])))
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+    steps = s.scan_idx
+    split = ", ".join(f"{name} {1e3 * t / steps:.2f} ({calls[name]} calls)"
+                      for name, t in sorted(acc.items(), key=lambda x: -x[1]))
+    print(f"[stage-split] entry widths, {steps} scan steps, synchronized "
+          f"around each stage: median {statistics.median(ms[5:]):.2f} ms a "
+          f"scan; host ms a scan step by stage: {split}", flush=True)
+
+
 def room_clean_phase():
     from mimosa_tpu_torch.io import synthetic_replay
 
-    out = synthetic_replay.run(device="cuda", verbose=False)
+    out = synthetic_replay.run(verbose=False)
+    check(out["sequencer"].device.type == "cuda",
+          f"the replay ran on {out['sequencer'].device}")
     rate = out["n_scans"] / out["wall"]
     check(out["ate"] < ROOM_CLEAN_ATE_GATE, f"room_clean ATE "
           f"{out['ate']:.4f} m >= {ROOM_CLEAN_ATE_GATE}")
@@ -308,7 +474,7 @@ def main():
     from mimosa_tpu_torch.ops import icp_cuda
 
     dev = require_cuda()
-    smi = nvidia_smi_line()
+    smi = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -320,17 +486,22 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
 
+    if "--stage-split" in sys.argv[1:]:
+        stage_split_phase()
+        return 0
     timings = kernel_phase(dev)
-    launches = slice_phase(dev)
+    launches = slice_phase()
     room_clean_phase()
 
-    main_n = 8192
+    at = timings[8192]
     rec = dict(name="icp_linearize", route="cuda",
                source="mimosa_tpu_torch/csrc/icp_linearize.cu",
                replaces="mimosa_tpu/ops/icp_pallas.py:169",
-               launches=launches,
-               max_abs_err=timings[main_n]["max_abs_err"],
-               ms=timings[main_n]["ms"], plain_ms=timings[main_n]["plain_ms"])
+               launches=launches, max_abs_err=at["max_abs_err"],
+               ms=at["ms"], plain_ms=at["plain_ms"],
+               bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+               library_ms=None, bound_us=1e3 * at["bound_ms"],
+               device_us=1e3 * at["device_ms"], host_ms=at["host_ms"])
     print(json.dumps({"kernels": [rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

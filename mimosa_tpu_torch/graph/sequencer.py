@@ -31,6 +31,7 @@ import logging
 import numpy as np
 import torch
 
+from mimosa_tpu_torch import require_cuda
 from mimosa_tpu_torch.core import lie
 from mimosa_tpu_torch.graph import window as win
 from mimosa_tpu_torch.imu import preintegration as pre
@@ -364,13 +365,16 @@ def _marginalize(window, preints, fv, *, win_cfg):
 class Sequencer:
     """Host orchestrator of the geometric LiDAR-inertial slice.
     Deterministic: the same inputs in the same order give the same
-    trajectory (up to f32 summation order in the map's scatter-adds)."""
+    trajectory (up to f32 summation order in the map's scatter-adds).
+
+    ``device`` defaults to the first CUDA device and raises where there is
+    none; ``device="cpu"`` runs the plain versions on the CPU."""
 
     def __init__(self, seq_cfg: SequencerConfig | None = None,
                  win_cfg: win.WindowConfig = win.WindowConfig(),
                  map_cfg: vh.VoxelMapConfig = vh.VoxelMapConfig(),
                  geo_cfg: geo.GeometricConfig = geo.GeometricConfig(),
-                 *, device="cpu", dtype=torch.float32):
+                 *, device=None, dtype=torch.float32):
         seq_cfg = seq_cfg or SequencerConfig(quantize_transfer=False)
         for name, need in _PORTED_ONLY.items():
             if getattr(seq_cfg, name) != need:
@@ -381,7 +385,8 @@ class Sequencer:
         self.win_cfg = win_cfg
         self.map_cfg = map_cfg
         self.geo_cfg = geo_cfg
-        self.device = torch.device(device)
+        self.device = require_cuda() if device is None \
+            else torch.device(device)
         self.dtype = dtype
         f = dict(dtype=dtype, device=self.device)
 

@@ -1,9 +1,10 @@
 """Synthetic end-to-end replay of the port (the room_clean configuration).
 
-``python -m mimosa_tpu_torch.io.synthetic_replay [--device cuda]`` generates
+``python -m mimosa_tpu_torch.io.synthetic_replay [--device cpu]`` generates
 the synthetic room sequence, replays it through the port's Sequencer
 exactly as ``mimosa_tpu/io/synthetic_replay.py`` drives the JAX one, and
-prints the ATE. The port has the plain f32 transfer codec only, so the
+prints the ATE. It runs on the first CUDA device unless ``--device`` names
+another, and raises where there is no card. The port has the plain f32 transfer codec only, so the
 replay runs with ``quantize_transfer=False`` where the JAX default
 quantizes to int16.
 """
@@ -15,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from mimosa_tpu_torch import require_cuda
 from mimosa_tpu_torch.graph import sequencer as seq
 from mimosa_tpu_torch.graph import window as win
 from mimosa_tpu_torch.io import synthetic as syn
@@ -53,8 +55,11 @@ def trajectory_ate(s, data):
                         data["gt"]["ts"], data["gt"]["pos"])
 
 
-def run(device="cpu", t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
+def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
         range_noise=0.0):
+    """Replay the room_clean sequence on ``device`` (default: the first CUDA
+    device; raises where there is none)."""
+    device = require_cuda() if device is None else torch.device(device)
     lm = syn.LidarModel()
     data = syn.generate(syn.room_world(), syn.TrajectoryConfig(
         t_total=t_total), lm, seed=seed, imu_noise=imu_noise,
@@ -91,7 +96,8 @@ if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the first CUDA device)")
     ap.add_argument("--t-total", type=float, default=12.0)
     args = ap.parse_args()
     out = run(device=args.device, t_total=args.t_total)

@@ -1,22 +1,25 @@
-"""The fused point-to-plane ICP reduction: CUDA kernel for Hopper + wrapper.
+"""The point-to-plane ICP linearization: CUDA kernel for Hopper + wrapper.
 
-Replaces ``mimosa_tpu/ops/icp_pallas.py::linearize_pallas``; the kernel
-source and its design note are in ``csrc/icp_linearize.cu``. It is built
-with ``nvcc`` for ``sm_90a`` into ``build/mimosa_tpu_torch/`` at first use
-and bound through a plain C interface with ``ctypes``.
+Replaces ``mimosa_tpu/ops/icp_pallas.py::linearize_pallas`` and the XLA
+tail of that wrapper; the kernel source and its design note are in
+``csrc/icp_linearize.cu``. It is built with ``nvcc`` for ``sm_90a`` into
+``build/mimosa_tpu_torch/`` at first use and bound through a plain C
+interface with ``ctypes``.
 
 :func:`linearize` has the meaning of ``lidar.geometric.linearize_with`` (the
 plain PyTorch version, which it calls for tensors on the CPU): rotation
 degeneracy is judged with ``loc_count_thresh_rot`` and the 4-DoF projection
-applies when configured. For CUDA tensors it launches the kernel or raises;
-it never falls back.
+applies when configured. For CUDA tensors it makes one launch of one
+thread-block cluster, which writes the whole result into three small
+buffers (f32, int32, uint8), and returns the result as views of them; it
+never falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -25,8 +28,6 @@ from pathlib import Path
 
 import torch
 
-from mimosa_tpu_torch.core import lie
-from mimosa_tpu_torch.core.eigh3 import eigh3
 from mimosa_tpu_torch.lidar import geometric as geo
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "icp_linearize.cu"
@@ -34,11 +35,39 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mimosa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches made through :func:`linearize` (one per call on the card)
+# kernel launches made through :func:`launch` (one per linearize call on
+# the card)
 LAUNCHES = 0
 
-_NSUMS = 45
-_MAX_GRID = 1024
+# The kernel's output layout: ICPResult field -> (buffer, offset, shape).
+# ``csrc/icp_linearize.cu`` reports the same numbers through icp_layout(),
+# checked when the library loads.
+F32, I32, U8 = "f32", "i32", "u8"
+SIZES = {F32: 85, I32: 10, U8: 6}
+LAYOUT = {
+    "H": (F32, 0, (6, 6)),
+    "b": (F32, 36, (6,)),
+    "num_inlier": (I32, 0, ()),
+    "status_counts": (I32, 0, (geo.NUM_STATUS,)),
+    "mean_abs_res": (F32, 42, ()),
+    "loc_counts_rot": (I32, 4, (3,)),
+    "loc_counts_trans": (I32, 7, (3,)),
+    "eigvals_rot": (F32, 43, (3,)),
+    "eigvals_trans": (F32, 46, (3,)),
+    "eigvecs_rot": (F32, 49, (3, 3)),
+    "eigvecs_trans": (F32, 58, (3, 3)),
+    "degenerate_rot": (U8, 0, (3,)),
+    "degenerate_trans": (U8, 3, (3,)),
+}
+# the unweighted rotation and translation blocks the eigenvectors come
+# from, beside the result in the f32 buffer
+BLOCKS = (F32, 67, (2, 3, 3))
+# phase boundaries the optional trace records, as SM clocks of the
+# cluster's first CTA (see the kernel source)
+TRACE_POINTS = ("entry", "staged", "pass 1", "CTA sums", "cluster sync 1",
+                "cluster sums", "eigen + outputs", "pass 2",
+                "cluster sync 2", "flags")
+
 _lib = None
 # (seconds, compiler output) of the build this process loaded
 build_info = None
@@ -54,6 +83,11 @@ def _nvcc():
         raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
                            "build the ICP kernel")
     return path
+
+
+def _expected_layout():
+    return ([SIZES[F32], SIZES[I32], SIZES[U8]]
+            + [LAYOUT[f][1] for f in geo.ICPResult._fields] + [BLOCKS[1]])
 
 
 def build():
@@ -78,35 +112,36 @@ def build():
         log = (proc.stdout + proc.stderr).strip()
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.icp_partials.argtypes = [p, p, p, p, p, p, i, f, f, f, f, p, i, p]
-    lib.icp_finalize.argtypes = [p, i, p, p]
-    lib.icp_loc_counts.argtypes = [p, p, p, p, p, p, p, i, f, f, f, p, i, p]
-    for fn in (lib.icp_partials, lib.icp_finalize, lib.icp_loc_counts,
-               lib.icp_threads_per_block, lib.icp_num_sums):
+    lib.icp_linearize.argtypes = [p] * 8 + [i] + [f] * 7 + [p] * 5
+    for fn in (lib.icp_linearize, lib.icp_layout, lib.icp_trace_points):
         fn.restype = i
-    if lib.icp_num_sums() != _NSUMS:
-        raise RuntimeError("kernel sum layout does not match the wrapper")
+    lib.icp_layout.argtypes = [i]
+    lib.icp_trace_points.argtypes = []
+    want = _expected_layout()
+    got = [lib.icp_layout(k) for k in range(len(want) + 1)]
+    if got != want + [-1]:
+        raise RuntimeError(f"kernel output layout {got[:-1]} does not match "
+                           f"the wrapper's {want}")
+    if lib.icp_trace_points() != len(TRACE_POINTS):
+        raise RuntimeError("kernel trace points do not match the wrapper's")
     _lib = lib
     build_info = (time.perf_counter() - t0, log)
     return lib
 
 
-def _check(code, what):
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {code}")
-
-
-def _check_inputs(points_b, normal, mean, found, valid, q, t):
+def _check_inputs(points_b, normal, mean, found, valid, q, t, g_dir):
     n = points_b.shape[0]
     dev = points_b.device
-    for name, x, shape, dtypes in (
-            ("points_b", points_b, (n, 3), (torch.float32,)),
-            ("normal", normal, (n, 3), (torch.float32,)),
-            ("mean", mean, (n, 3), (torch.float32,)),
-            ("found", found, (n,), (torch.bool, torch.uint8)),
-            ("valid", valid, (n,), (torch.bool, torch.uint8)),
-            ("q", q, (4,), (torch.float32,)),
-            ("t", t, (3,), (torch.float32,))):
+    named = [("points_b", points_b, (n, 3), (torch.float32,)),
+             ("normal", normal, (n, 3), (torch.float32,)),
+             ("mean", mean, (n, 3), (torch.float32,)),
+             ("found", found, (n,), (torch.bool, torch.uint8)),
+             ("valid", valid, (n,), (torch.bool, torch.uint8)),
+             ("q", q, (4,), (torch.float32,)),
+             ("t", t, (3,), (torch.float32,))]
+    if g_dir is not None:
+        named.append(("g_dir", g_dir, (3,), (torch.float32,)))
+    for name, x, shape, dtypes in named:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, points on {dev}")
         if tuple(x.shape) != shape:
@@ -119,92 +154,68 @@ def _check_inputs(points_b, normal, mean, found, valid, q, t):
             raise ValueError(f"{name} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _unpack_index(device):
-    """Gather indices into the 45 sums: H [6,6] from its 21-entry upper
-    triangle at 0, and the rotation and translation blocks [2,3,3] from
-    theirs at 27 and 33 (row-major upper triangles, mirrored)."""
-    def sym(n, base):
-        iu = torch.triu_indices(n, n, device=device)
-        pos = base + torch.arange(iu.shape[1], device=device)
-        idx = torch.empty((n, n), dtype=torch.int64, device=device)
-        idx[iu[0], iu[1]] = pos
-        idx[iu[1], iu[0]] = pos
-        return idx
-    return sym(6, 0), torch.stack([sym(3, 27), sym(3, 33)])
+def _view(buf, off, shape):
+    return buf[off:off + math.prod(shape)].view(shape)
 
 
-def _grid(lib, n):
-    """Blocks to launch: one thread per point up to _MAX_GRID blocks, past
-    which each thread's grid-stride loop takes several points."""
-    return max(1, min(_MAX_GRID, -(-n // lib.icp_threads_per_block())))
+def unpack(f32, i32, u8) -> geo.ICPResult:
+    """The ICPResult held by the three output buffers, as views of them."""
+    bufs = {F32: f32, I32: i32, U8: u8.view(torch.bool)}
+    return geo.ICPResult(**{name: _view(bufs[buf], off, shape)
+                            for name, (buf, off, shape) in LAYOUT.items()})
 
 
-def _launch_sums(points_b, normal, mean, found, valid, rt, cfg):
-    """The reduction's two launches: ``out[45]`` f32 on the device."""
+def blocks(f32):
+    """The unweighted rotation and translation blocks [2,3,3] in the f32
+    buffer (the inputs of the kernel's eigen-analysis)."""
+    return _view(f32, *BLOCKS[1:])
+
+
+def launch(matches, points_b, valid, q, t, cfg: geo.GeometricConfig,
+           g_dir=None, trace=None):
+    """One launch of the kernel on CUDA tensors; returns its three new
+    output buffers, which :func:`unpack` reads. ``trace``, an int64 tensor
+    [len(TRACE_POINTS)] on the device, receives the SM clock at each phase
+    boundary."""
+    global LAUNCHES
+    if points_b.device.type != "cuda":
+        raise ValueError(f"unsupported device {points_b.device}")
+    normal, mean, found = matches
+    if not cfg.use_4dof:
+        g_dir = None
+    _check_inputs(points_b, normal, mean, found, valid, q, t, g_dir)
+    if trace is not None and (trace.device != points_b.device
+                              or trace.dtype != torch.int64
+                              or tuple(trace.shape) != (len(TRACE_POINTS),)):
+        raise ValueError("trace must be an int64 tensor "
+                         f"[{len(TRACE_POINTS)}] on {points_b.device}")
     lib = build()
-    n = points_b.shape[0]
-    grid = _grid(lib, n)
-    partials = torch.empty((grid, _NSUMS), dtype=torch.float32,
-                           device=points_b.device)
-    out = torch.empty(_NSUMS, dtype=torch.float32, device=points_b.device)
-    stream = torch.cuda.current_stream(points_b.device).cuda_stream
-    _check(lib.icp_partials(
-        points_b.data_ptr(), normal.data_ptr(), mean.data_ptr(),
-        valid.data_ptr(), found.data_ptr(), rt.data_ptr(), n, cfg.sigma ** 2,
-        cfg.huber_delta, cfg.s_gate_min, cfg.max_p2p_dist,
-        partials.data_ptr(), grid, stream), "icp_partials")
-    _check(lib.icp_finalize(partials.data_ptr(), grid, out.data_ptr(),
-                            stream), "icp_finalize")
-    return out
-
-
-def _launch_loc_counts(points_b, normal, mean, found, valid, rt, vecs, cfg):
-    """The localizability count launch: ``int32[6]`` on the device."""
-    lib = build()
-    n = points_b.shape[0]
-    grid = _grid(lib, n)
-    loc = torch.zeros(6, dtype=torch.int32, device=points_b.device)
-    _check(lib.icp_loc_counts(
-        points_b.data_ptr(), normal.data_ptr(), mean.data_ptr(),
-        valid.data_ptr(), found.data_ptr(), rt.data_ptr(), vecs.data_ptr(),
-        n, cfg.s_gate_min, cfg.max_p2p_dist, cfg.loc_proj_cutoff,
-        loc.data_ptr(), grid,
-        torch.cuda.current_stream(points_b.device).cuda_stream),
-        "icp_loc_counts")
-    return loc
+    dev = points_b.device
+    f32 = torch.empty(SIZES[F32], dtype=torch.float32, device=dev)
+    i32 = torch.empty(SIZES[I32], dtype=torch.int32, device=dev)
+    u8 = torch.empty(SIZES[U8], dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.icp_linearize(
+            points_b.data_ptr(), normal.data_ptr(), mean.data_ptr(),
+            valid.data_ptr(), found.data_ptr(), q.data_ptr(), t.data_ptr(),
+            None if g_dir is None else g_dir.data_ptr(), points_b.shape[0],
+            cfg.sigma ** 2, cfg.huber_delta, cfg.s_gate_min, cfg.max_p2p_dist,
+            cfg.loc_proj_cutoff, cfg.loc_count_thresh_rot,
+            cfg.loc_count_thresh, f32.data_ptr(), i32.data_ptr(),
+            u8.data_ptr(), None if trace is None else trace.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"icp_linearize launch failed: CUDA error {code}")
+    LAUNCHES += 1
+    return f32, i32, u8
 
 
 def linearize(matches, points_b, valid, q, t, cfg: geo.GeometricConfig,
               g_dir=None) -> geo.ICPResult:
     """ICP linearization against fixed correspondences ``matches`` =
-    (normal, mean, found): the kernel for CUDA tensors, the plain version
-    (``geo.linearize_with``) for CPU tensors."""
-    global LAUNCHES
+    (normal, mean, found): one kernel launch for CUDA tensors, the plain
+    version (``geo.linearize_with``) for CPU tensors."""
     if points_b.device.type == "cpu":
         return geo.linearize_with(matches, points_b, valid, q, t, cfg,
                                   g_dir=g_dir)
-    if points_b.device.type != "cuda":
-        raise ValueError(f"unsupported device {points_b.device}")
-    normal, mean, found = matches
-    _check_inputs(points_b, normal, mean, found, valid, q, t)
-    R = lie.quat_to_mat(q)
-    rt = torch.cat([R.reshape(9), t]).contiguous()
-    with torch.cuda.device(points_b.device):
-        out = _launch_sums(points_b, normal, mean, found, valid, rt, cfg)
-        LAUNCHES += 1
-        h_idx, blocks_idx = _unpack_index(points_b.device)
-        H = out[h_idx]
-        b = out[21:27]
-        lam, V = eigh3(out[blocks_idx])
-        counts = out[39:43].to(torch.int32)
-        mean_abs = out[43] / torch.clamp(out[44], min=1.0)
-        loc = _launch_loc_counts(points_b, normal, mean, found, valid, rt,
-                                 V.contiguous(), cfg)
-    cnt_r, cnt_t = loc[:3], loc[3:]
-    if cfg.use_4dof and g_dir is not None:
-        H, b = geo.four_dof_projection(H, b, R, g_dir)
-    return geo.ICPResult(H, b, counts[0], counts, mean_abs, cnt_r, cnt_t,
-                         lam[0], lam[1], V[0], V[1],
-                         cnt_r < cfg.loc_count_thresh_rot,
-                         cnt_t < cfg.loc_count_thresh)
+    return unpack(*launch(matches, points_b, valid, q, t, cfg, g_dir))

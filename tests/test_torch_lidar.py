@@ -9,6 +9,7 @@ The kernel itself runs only on the card: ``tests/test_torch_cuda.py``.
 
 import dataclasses
 import gc
+import re
 
 import jax
 import jax.numpy as jnp
@@ -349,6 +350,90 @@ def test_icp_wrapper_matches_pallas_kernel(icp_case):
     # the Pallas wrapper's rotation flags use the translation threshold
     assert not np.array_equal(out.degenerate_rot.numpy(),
                               np.asarray(ref.degenerate_rot))
+
+
+def _kernel_layout_constants():
+    """The output layout constants of ``csrc/icp_linearize.cu`` (its
+    ``enum``), read from the source: name -> value."""
+    src = icp_cuda.SOURCE.read_text()
+    enum = re.search(r"enum : int \{(.*?)\};", src, re.S).group(1)
+    return {k: int(v) for k, v in re.findall(r"(k\w+) = (\d+)", enum)}
+
+
+# ICPResult field -> the kernel's offset constant
+_KERNEL_OFFSET = {
+    "H": "kH", "b": "kB", "num_inlier": "kStatus",
+    "status_counts": "kStatus", "mean_abs_res": "kMeanAbs",
+    "loc_counts_rot": "kCntR", "loc_counts_trans": "kCntT",
+    "eigvals_rot": "kLamR", "eigvals_trans": "kLamT",
+    "eigvecs_rot": "kVR", "eigvecs_trans": "kVT",
+    "degenerate_rot": "kDegR", "degenerate_trans": "kDegT",
+}
+
+
+def _pack_like_the_kernel(res):
+    """The three output buffers the kernel writes, filled from a plain
+    result at the offsets the kernel source states, each buffer's unused
+    entries left at a sentinel."""
+    c = _kernel_layout_constants()
+    f32 = torch.full((c["kOutF"],), float("nan"))
+    i32 = torch.full((c["kOutI"],), -7, dtype=torch.int32)
+    u8 = torch.full((c["kOutU"],), 7, dtype=torch.uint8)
+    for name, const in _KERNEL_OFFSET.items():
+        v = getattr(res, name).reshape(-1)
+        buf = {torch.float32: f32, torch.int32: i32, torch.bool: u8}[v.dtype]
+        buf[c[const]:c[const] + v.numel()] = v.to(buf.dtype)
+    return f32, i32, u8
+
+
+def test_icp_wrapper_layout_is_the_kernel_source_layout():
+    """The wrapper's layout table, and the list it checks icp_layout()
+    against when the library loads, agree with the kernel source."""
+    c = _kernel_layout_constants()
+    assert icp_cuda.SIZES == {icp_cuda.F32: c["kOutF"],
+                              icp_cuda.I32: c["kOutI"],
+                              icp_cuda.U8: c["kOutU"]}
+    for name, (_, off, _) in icp_cuda.LAYOUT.items():
+        assert off == c[_KERNEL_OFFSET[name]], name
+    assert icp_cuda.BLOCKS[1] == c["kBlocks"]
+    layout = re.search(r"kLayout\[\] = \{(.*?)\};",
+                       icp_cuda.SOURCE.read_text(), re.S).group(1)
+    layout = re.sub(r"/\*.*?\*/", "", layout)
+    assert [c[k.strip()] for k in layout.split(",")] == \
+        icp_cuda._expected_layout()
+    # fields tile each buffer without overlap (num_inlier is
+    # status_counts[0]); the blocks [2,3,3] close the f32 buffer
+    for buf in (icp_cuda.F32, icp_cuda.I32, icp_cuda.U8):
+        spans = sorted((off, off + int(np.prod(shape)))
+                       for name, (b, off, shape) in icp_cuda.LAYOUT.items()
+                       if b == buf and name != "num_inlier")
+        if buf == icp_cuda.F32:
+            spans.append((icp_cuda.BLOCKS[1], icp_cuda.BLOCKS[1] + 18))
+        assert spans[0][0] == 0 and spans[-1][1] == icp_cuda.SIZES[buf]
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), spans
+
+
+@pytest.mark.parametrize("cfg_name", sorted(GEO_CFGS))
+def test_icp_wrapper_unpacks_the_kernel_layout(icp_case, cfg_name):
+    """The plain result packed as the kernel writes it and read back by the
+    wrapper's unpack equals the plain result field by field (dtype, shape,
+    value)."""
+    c = icp_case
+    _, tcfg = _cfgs(cfg_name)
+    ref = tgeo.linearize_with(*_torch_args(c), tcfg, g_dir=_t(c["g_dir"]))
+    f32, i32, u8 = _pack_like_the_kernel(ref)
+    out = icp_cuda.unpack(f32, i32, u8)
+    assert isinstance(out, tgeo.ICPResult)
+    for name in tgeo.ICPResult._fields:
+        o, r = getattr(out, name), getattr(ref, name)
+        assert o.dtype == r.dtype and o.shape == r.shape, name
+        assert torch.equal(o, r), name
+        # views of the buffers, not copies
+        assert o.untyped_storage().data_ptr() in (
+            f32.untyped_storage().data_ptr(),
+            i32.untyped_storage().data_ptr(),
+            u8.untyped_storage().data_ptr()), name
+    assert icp_cuda.blocks(f32).shape == (2, 3, 3)
 
 
 def test_icp_wrapper_rejects_bad_cuda_input():

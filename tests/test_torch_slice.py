@@ -108,7 +108,7 @@ def _port_sequencer():
     return tseq.Sequencer(tseq.SequencerConfig(**SEQ_KW),
                           twin.WindowConfig(**WIN_KW),
                           tvh.VoxelMapConfig(**MAP_KW),
-                          tgeo.GeometricConfig(**GEO_KW))
+                          tgeo.GeometricConfig(**GEO_KW), device="cpu")
 
 
 def _jax_state(s):
@@ -238,8 +238,42 @@ def test_sequencer_refuses_unported_settings():
     for kw in (dict(), dict(quantize_transfer=False, rescue_enabled=True),
                dict(quantize_transfer=False, range_transfer=True)):
         with pytest.raises(NotImplementedError):
-            tseq.Sequencer(tseq.SequencerConfig(**kw))
-    assert tseq.Sequencer().cfg.quantize_transfer is False
+            tseq.Sequencer(tseq.SequencerConfig(**kw), device="cpu")
+    assert tseq.Sequencer(device="cpu").cfg.quantize_transfer is False
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device the Sequencer and the replay take the first CUDA
+    device and raise where there is none; device="cpu" is the caller's
+    explicit choice."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tseq.Sequencer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trep.run(verbose=False)
+    assert tseq.Sequencer(device="cpu").device == torch.device("cpu")
+
+
+def test_replay_cli_defaults_to_the_card():
+    """``python -m mimosa_tpu_torch.io.synthetic_replay`` with no
+    ``--device`` asks for the card and fails without one."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "sys.argv = ['synthetic_replay', '--t-total', '0.3']\n"
+            "import runpy\n"
+            "runpy.run_module('mimosa_tpu_torch.io.synthetic_replay', "
+            "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_replay_runs_on_the_cpu_when_asked():
+    out = trep.run(device="cpu", t_total=2.0, verbose=False)
+    assert out["sequencer"].device == torch.device("cpu")
+    assert out["n_scans"] == 9 and out["sequencer"].scan_idx == 8
+    assert out["ate"] < 0.010            # the room_clean gate
 
 
 def test_add_imu_batch_matches_add_imu():
