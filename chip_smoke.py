@@ -6,11 +6,12 @@
 
 Drives the port (``mimosa_tpu_torch``) through its main path on the card
 and prints one line per phase; any failure raises, so the exit code is
-non-zero. It needs a CUDA device and ``nvcc``; it imports nothing of JAX or
-of the JAX package.
+non-zero. It needs a CUDA device, ``nvcc`` and ``g++``; it imports nothing
+of JAX or of the JAX package.
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles ``mimosa_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
+2. build: compiles ``mimosa_tpu_torch/csrc/*.cu`` with nvcc for sm_90a and
+   the host scan pack (``mimosa_tpu_torch/native``) with g++ into
    ``build/mimosa_tpu_torch/``;
 3. kernel: the ICP linearization (one cluster launch a call) against its
    plain PyTorch version on a synthetic room scene at N = 8192, 4096 and
@@ -24,15 +25,24 @@ of the JAX package.
    (profiler: one kernel a call), and the SM clocks of the kernel's
    phases (its optional trace, median of 50 launches);
 4. slice: the Sequencer at the widths of ``__graft_entry__.entry()``
-   (32768 points a scan, 8192 ICP points, K=8, 2^18 voxels) on a room
-   sequence from a 64x512 LiDAR, on the default device (the card): finite
-   poses, ATE < 0.08 m, and the ICP kernel launched (n_gn_iters + 1) times
-   per scan step;
-5. room_clean: ``mimosa_tpu_torch.io.synthetic_replay.run()`` on the
-   default device, with ATE < 0.010 m;
-6. with ``--stage-split`` and nothing else: the entry-width replay with a
-   device synchronize and a host clock around each stage of the scan
-   step, printing host ms a scan step by stage (no JSON lines).
+   (32768 points a scan, 8192 ICP points, K=8, 2^18 voxels, f32 codec) on
+   a room sequence from a 64x512 LiDAR, twice in one process: with the
+   scan step captured as CUDA graphs (the default; the main path, whose
+   ICP launches the kernel record counts) and op by op (``eager=True``).
+   Each: finite poses, ATE < 0.08 m, the ICP kernel launched
+   (n_gn_iters + 1) times per scan step (the wrappers' count, and the
+   kernels the profiler sees run in the last scans), ms a scan (median,
+   p90) and the device's busy and idle share (profiler over the last
+   scans); then the
+   largest position gap between the two trajectories (< 0.01 m);
+5. scoreboard: the geometric rows of the JAX package's synthetic
+   scoreboard through ``mimosa_tpu_torch.io.synthetic_replay.run`` on the
+   card, with the settings and gates of ``scripts/dataset_evaluation.py``:
+   room_clean (int16 codec, < 0.010 m), room_noisy, room_range_codec,
+   fast_spin (< 0.08 m) and corridor_geo_proj (< 3.0 m);
+6. with ``--stage-split`` and nothing else: the entry-width replay run
+   eagerly with a device synchronize and a host clock around each stage of
+   the scan step, printing host ms a scan step by stage (no JSON lines).
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
@@ -61,7 +71,29 @@ F32_FLOP_S = 67e12
 FLOPS_POINT = 182
 FLOPS_INLIER = 30
 ENTRY_ATE_GATE = 0.08                      # room_noisy's gate
-ROOM_CLEAN_ATE_GATE = 0.010                # ACCURACY.md room_clean gate
+# captured against eager at entry widths: the same kernels on the same
+# inputs, so the capture must not move the estimate; 1 cm is the room_clean
+# gate, and a last-bit difference grows to ~0.2 mm over a short replay (the
+# CPU tests' JAX-against-port gap)
+CAPTURE_GAP = 0.01
+# the geometric rows of the JAX package's synthetic scoreboard
+# (scripts/dataset_evaluation.py:149-163, 219-224, 275-292): name,
+# synthetic_replay.run keywords, ATE gate [m]
+NOISY = dict(imu_noise=0.01, range_noise=0.01)
+CORRIDOR = dict(seed=0, imu_noise=0.01, range_noise=0.005)
+SCOREBOARD = (
+    ("room_clean", dict(), 0.010),
+    ("room_noisy", NOISY, 0.080),
+    ("room_range_codec", dict(range_transfer=True, **NOISY), 0.080),
+    ("fast_spin", dict(seed=0, tc=dict(t_total=8.0, yaw_rate=1.8,
+                                       amp=(3.0, 1.6, 0.4),
+                                       freq=(0.22, 0.31, 0.40)), **NOISY),
+     0.080),
+    ("corridor_geo_proj", dict(project_degenerate=True, world="corridor",
+                               tc=dict(t_total=8.0, amp=(4.0, 0.6, 0.3),
+                                       center=(40.0, 2.0, 1.5),
+                                       yaw_rate=0.15), **CORRIDOR), 3.0),
+)
 
 
 def check(cond, what):
@@ -316,10 +348,10 @@ def device_busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
-def entry_replay(**device):
+def entry_replay(**kw):
     """(Sequencer at the widths of ``__graft_entry__.entry()``, its 4 s
-    room sequence from a 64x512 LiDAR); ``device`` as the Sequencer takes
-    it, the default device where not given."""
+    room sequence from a 64x512 LiDAR); ``kw`` (``device``, ``eager``) as
+    the Sequencer takes them, the default device where not given."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.io import synthetic as syn
@@ -336,18 +368,21 @@ def entry_replay(**device):
         win.WindowConfig(K=8),
         vh.VoxelMapConfig(capacity_log2=18, leaf_size=0.4,
                           plane_min_points=5, lru_horizon=0),
-        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), **device)
+        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), **kw)
     check(s.device.type == "cuda", f"the Sequencer chose {s.device}")
     return s, data
 
 
-def slice_phase():
+def entry_run(eager):
+    """One entry-width replay, captured or eager: its numbers, with the ICP
+    launches counted from 0 over the replay."""
     from torch.profiler import ProfilerActivity, profile
 
     from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
     from mimosa_tpu_torch.ops import icp_cuda
 
-    s, data = entry_replay()
+    s, data = entry_replay(eager=eager)
+    check((s.graphs is None) == eager, "the Sequencer's capture setting")
     n_scans = len(data["scans"])
     n_prof = 3                # the last scans run under the profiler
     torch.cuda.reset_peak_memory_stats()
@@ -360,32 +395,68 @@ def slice_phase():
     launches = icp_cuda.LAUNCHES
     steps = s.scan_idx
     want = (s.cfg.n_gn_iters + 1) * steps
-    check(steps > 20, f"only {steps} scan steps ran")
-    check(launches == want, f"ICP kernel launched {launches} times in "
-          f"{steps} scan steps, expected {want}")
+    name = "eager" if eager else "captured"
+    check(steps > 20, f"{name}: only {steps} scan steps ran")
+    check(launches == want, f"{name}: ICP kernel launched {launches} times "
+          f"in {steps} scan steps, expected {want}")
+    # the count above is bookkeeping under replay (a capture records the
+    # launches and the replays add them); the profiler sees the kernels the
+    # card ran in the last scans
+    ran = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "icp_linearize_kernel" in e.name)
+    want_ran = (s.cfg.n_gn_iters + 1) * n_prof
+    check(ran == want_ran, f"{name}: the profiler saw {ran} ICP kernels run "
+          f"in the last {n_prof} scan steps, expected {want_ran}")
     traj = np.asarray([p for _, p, _ in s.trajectory])
-    check(np.isfinite(traj).all(), "non-finite poses")
+    check(np.isfinite(traj).all(), f"{name}: non-finite poses")
     ate = trajectory_ate(s, data)
-    check(ate < ENTRY_ATE_GATE, f"entry-width ATE {ate:.4f} m >= "
+    check(ate < ENTRY_ATE_GATE, f"{name}: entry-width ATE {ate:.4f} m >= "
           f"{ENTRY_ATE_GATE}")
     steady = ms[5:]           # after the first 5 scans (init included)
-    med = statistics.median(steady)
-    p90 = float(np.percentile(steady, 90))
     busy, n_dev = device_busy_ms(prof)
-    check(n_dev > 0, "the profiler saw no device work in the scan steps")
-    busy_scan = busy / n_prof
-    print(f"[slice] entry widths: {steps} scan steps + init, ICP kernel "
-          f"launches {launches} (= {s.cfg.n_gn_iters + 1} x {steps}), ATE "
-          f"{ate:.5f} m (gate {ENTRY_ATE_GATE}), ms/scan steady median "
-          f"{med:.2f} p90 {p90:.2f} over {len(steady)} scans (first step "
-          f"{ms[1]:.1f}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
-    print(f"[slice] profiled last {n_prof} scans: {n_dev / n_prof:.0f} device "
-          f"ops and {busy_scan:.2f} ms device busy per scan, host "
-          f"{statistics.median(ms_prof):.2f} ms/scan under the profiler; "
-          f"device idle {100 * (1 - busy_scan / med):.1f}% of the unprofiled "
+    check(n_dev > 0, f"{name}: the profiler saw no device work")
+    out = dict(name=name, launches=launches, ran=ran, steps=steps, ate=ate,
+               med=statistics.median(steady),
+               p90=float(np.percentile(steady, 90)), first=ms[1:5],
+               busy=busy / n_prof, n_dev=n_dev / n_prof,
+               prof_ms=statistics.median(ms_prof), traj=traj,
+               mem=torch.cuda.max_memory_allocated() / 2**20,
+               captures=None if eager else s.graphs.captures)
+    out["idle"] = 100 * (1 - out["busy"] / out["med"])
+    print(f"[slice] {name}, entry widths: {steps} scan steps + init, ICP "
+          f"kernel launches {launches} (= {s.cfg.n_gn_iters + 1} x {steps}), "
+          f"ATE {ate:.5f} m (gate {ENTRY_ATE_GATE}), ms/scan steady median "
+          f"{out['med']:.2f} p90 {out['p90']:.2f} over {len(steady)} scans "
+          f"(steps 1-4: {', '.join(f'{m:.1f}' for m in out['first'])}); "
+          f"peak device memory {out['mem']:.0f} MiB"
+          + ("" if eager else f"; {out['captures']} graphs captured"),
+          flush=True)
+    print(f"[slice] {name}, profiled last {n_prof} scans: {ran} ICP kernels "
+          f"ran on the card (= {s.cfg.n_gn_iters + 1} x {n_prof}), "
+          f"{out['n_dev']:.0f} device ops and {out['busy']:.2f} ms device "
+          f"busy per scan, host {out['prof_ms']:.2f} ms/scan under the "
+          f"profiler; device idle {out['idle']:.1f}% of the unprofiled "
           f"median scan", flush=True)
-    return launches
+    return out
+
+
+def slice_phase():
+    """The entry-width replay captured (the main path) and then eager, in
+    one process. Returns the captured run's ICP launches and the ICP
+    kernels the profiler saw run in its last scans."""
+    cap = entry_run(eager=False)
+    eag = entry_run(eager=True)
+    check(cap["traj"].shape == eag["traj"].shape, "trajectory lengths differ")
+    gap = float(np.abs(cap["traj"] - eag["traj"]).max())
+    check(gap < CAPTURE_GAP, f"captured and eager positions differ by "
+          f"{gap:.4f} m")
+    print(f"[slice] captured vs eager: ms/scan median {cap['med']:.2f} vs "
+          f"{eag['med']:.2f} ({eag['med'] / cap['med']:.1f}x), device idle "
+          f"{cap['idle']:.1f}% vs {eag['idle']:.1f}%, ATE {cap['ate']:.5f} vs "
+          f"{eag['ate']:.5f} m, largest position gap {gap:.2e} m (gate "
+          f"{CAPTURE_GAP})", flush=True)
+    return cap["launches"], cap["ran"]
 
 
 # stages of the scan step timed by --stage-split: (module, function, name)
@@ -411,16 +482,16 @@ STAGES = (
 
 
 def stage_split_phase():
-    """The entry-width replay with a device synchronize and a host clock
-    around each stage function of the step: host ms a scan step of each
-    stage (nested stages count in both: deskew's preintegration, the map
-    update's downsample). Passes the device explicitly, so the same split
-    runs against a tree whose Sequencer has another default."""
+    """The entry-width replay, run eagerly, with a device synchronize and a
+    host clock around each stage function of the step: host ms a scan step
+    of each stage (nested stages count in both: deskew's preintegration,
+    the map update's downsample). Passes the device explicitly, so the same
+    split runs against a tree whose Sequencer has another default."""
     import importlib
 
     from mimosa_tpu_torch import require_cuda
 
-    s, data = entry_replay(device=require_cuda())
+    s, data = entry_replay(device=require_cuda(), eager=True)
     acc, calls, saved = {}, {}, []
 
     def timed(name, fn):
@@ -451,18 +522,31 @@ def stage_split_phase():
           f"scan; host ms a scan step by stage: {split}", flush=True)
 
 
-def room_clean_phase():
+def scoreboard_phase():
+    """The scoreboard rows on the card (captured steps), each under its
+    gate."""
+    from mimosa_tpu_torch.io import synthetic as syn
     from mimosa_tpu_torch.io import synthetic_replay
 
-    out = synthetic_replay.run(verbose=False)
-    check(out["sequencer"].device.type == "cuda",
-          f"the replay ran on {out['sequencer'].device}")
-    rate = out["n_scans"] / out["wall"]
-    check(out["ate"] < ROOM_CLEAN_ATE_GATE, f"room_clean ATE "
-          f"{out['ate']:.4f} m >= {ROOM_CLEAN_ATE_GATE}")
-    print(f"[room_clean] ATE {out['ate']:.5f} m (gate "
-          f"{ROOM_CLEAN_ATE_GATE}), {out['n_scans']} scans at {rate:.1f} "
-          f"scans/s incl. first-call set-up", flush=True)
+    for name, kw, gate in SCOREBOARD:
+        kw = dict(kw)
+        if "tc" in kw:
+            kw["tc"] = syn.TrajectoryConfig(**kw["tc"])
+        if kw.pop("world", None) == "corridor":
+            kw["world"] = syn.corridor_world()
+        out = synthetic_replay.run(verbose=False, **kw)
+        s = out["sequencer"]
+        check(s.device.type == "cuda", f"{name} ran on {s.device}")
+        check(s.graphs is not None and s.graphs.replays > 0,
+              f"{name}: no captured step was replayed")
+        ms = 1e3 * out["wall"] / out["n_scans"]
+        codec = ("range" if s.cfg.range_transfer else "int16"
+                 if s.cfg.quantize_transfer else "f32")
+        print(f"[scoreboard] {name}: ATE {out['ate']:.5f} m (gate {gate}), "
+              f"{out['n_scans']} scans, {codec} codec, {ms:.2f} ms a scan "
+              f"incl. first-call set-up and captures, counters "
+              f"{out['counters']}", flush=True)
+        check(out["ate"] < gate, f"{name} ATE {out['ate']:.4f} m >= {gate}")
 
 
 def main():
@@ -470,7 +554,7 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from mimosa_tpu_torch import require_cuda
+    from mimosa_tpu_torch import native, require_cuda
     from mimosa_tpu_torch.ops import icp_cuda
 
     dev = require_cuda()
@@ -485,13 +569,18 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[build] {native.SOURCES[0].name} -> {native.BUILD_DIR} "
+          f"({native.build_mode}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "--stage-split" in sys.argv[1:]:
         stage_split_phase()
         return 0
     timings = kernel_phase(dev)
-    launches = slice_phase()
-    room_clean_phase()
+    launches, ran = slice_phase()
+    scoreboard_phase()
 
     at = timings[8192]
     rec = dict(name="icp_linearize", route="cuda",
@@ -501,7 +590,8 @@ def main():
                ms=at["ms"], plain_ms=at["plain_ms"],
                bound_ms=at["bound_ms"], bound_by=at["bound_by"],
                library_ms=None, bound_us=1e3 * at["bound_ms"],
-               device_us=1e3 * at["device_ms"], host_ms=at["host_ms"])
+               device_us=1e3 * at["device_ms"], host_ms=at["host_ms"],
+               profiled_runs=ran)
     print(json.dumps({"kernels": [rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

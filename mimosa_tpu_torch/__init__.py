@@ -1,13 +1,16 @@
 """mimosa_tpu_torch — the PyTorch/CUDA port of ``mimosa_tpu``.
 
-The streaming geometric LiDAR-inertial scan step (deskew -> downsample ->
-predict/append -> Gauss-Newton with live point-to-plane ICP -> prior
-absorption -> keyframe map update), written as plain functions on torch
-tensors. The ICP linearization, the one kernel the JAX package wrote in
-Pallas (``mimosa_tpu/ops/icp_pallas.py``), is a hand-written CUDA kernel
-for Hopper here (``ops/icp_cuda.py``, ``csrc/icp_linearize.cu``). The entry
-points run on the first CUDA device (:func:`require_cuda`) unless the caller
-asks for the CPU with ``device="cpu"``.
+The streaming geometric LiDAR-inertial scan step (decode -> deskew ->
+downsample -> predict/append -> Gauss-Newton with live point-to-plane ICP
+-> prior absorption -> keyframe map update), written as plain functions on
+torch tensors and, on the card, captured as CUDA graphs
+(``graph/captured.py``). The ICP linearization, the one kernel the JAX
+package wrote in Pallas (``mimosa_tpu/ops/icp_pallas.py``), is a
+hand-written CUDA kernel for Hopper here (``ops/icp_cuda.py``,
+``csrc/icp_linearize.cu``); the host scan pack of the int16 transfer
+codecs is the JAX package's C++ (``native/``). The entry points run on the
+first CUDA device (:func:`require_cuda`) unless the caller asks for the
+CPU with ``device="cpu"``.
 
 The package mirrors ``mimosa_tpu/`` module for module and imports neither
 ``jax`` nor ``mimosa_tpu``: the JAX package stays the reference the port is

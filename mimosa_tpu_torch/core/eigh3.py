@@ -65,9 +65,11 @@ def _eigvec_for(A, lam, fallback):
 
 
 def _axis(k, A):
-    e = torch.zeros(3, dtype=A.dtype, device=A.device)
-    e[k] = 1.0
-    return e.expand(A.shape[:-1])
+    """The k-th unit axis, broadcast like A's rows. Made on the device by a
+    kernel: setting one element from a Python number copies it from
+    pageable host memory, which a captured step cannot hold."""
+    return torch.eye(3, dtype=A.dtype, device=A.device)[k].expand(
+        A.shape[:-1])
 
 
 def _any_orthogonal(v):

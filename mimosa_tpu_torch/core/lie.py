@@ -44,7 +44,10 @@ def _unit_x_or_y(g):
 # ---------------------------------------------------------------------------
 
 def quat_identity(dtype=torch.float32, device=None):
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    """[1, 0, 0, 0], made on the device by a kernel (the first row of a
+    1x4 identity): ``torch.tensor(..., device=cuda)`` would be a blocking
+    copy from pageable memory, which a captured step cannot hold."""
+    return torch.eye(1, 4, dtype=dtype, device=device)[0]
 
 
 def quat_mul(q1, q2):

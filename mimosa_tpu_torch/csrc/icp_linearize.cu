@@ -714,6 +714,15 @@ int icp_layout(int k) {
   return (k >= 0 && k < n) ? kLayout[k] : -1;
 }
 
+// Once per device, when the library loads (not per launch, so a launch
+// makes no call besides the kernel's and can be captured in a CUDA
+// graph): dynamic plus static shared memory may pass the 48 KB default.
+int icp_init() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      icp_linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxStageBytes));
+}
+
 int icp_linearize(const float* pts, const float* nrm, const float* mean,
                   const uint8_t* valid, const uint8_t* found, const float* q,
                   const float* t, const float* g_dir, int n, float sigma2,
@@ -730,13 +739,6 @@ int icp_linearize(const float* pts, const float* nrm, const float* mean,
                       && aligned16(nrm) && aligned16(mean)
                       && aligned16(valid) && aligned16(found);
   const size_t smem = staged ? stage_bytes : 0;
-  if (staged) {
-    // dynamic plus static shared memory may pass the 48 KB default
-    const cudaError_t e = cudaFuncSetAttribute(
-        icp_linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxStageBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   const Params g{pts, nrm, mean, valid, found, q, t, g_dir, n, chunk,
                  staged ? 1 : 0, sigma2, huber_delta, s_gate_min, max_dist,
                  cutoff, thresh_rot, thresh_trans, out_f, out_i, out_u,

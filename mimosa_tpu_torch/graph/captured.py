@@ -1,0 +1,168 @@
+"""The Sequencer's steps captured as CUDA graphs: one graph per variant.
+
+The torch counterpart of the JAX package's "one XLA program per scan"
+(``jax.jit`` of ``_scan_step``). A step variant is a function of the
+Sequencer's device state and its inputs (the staged scan and the IMU pack)
+with static shapes that never reads back to the host, so its kernels can
+be recorded once and replayed:
+
+* the first time a variant runs it runs eagerly on a side stream (the
+  warm-up ``torch.cuda.graphs`` asks for: cuBLAS / cuSOLVER handles and
+  workspaces are made there, not during capture);
+* the next time it is captured and replayed, and from then on replayed.
+
+The state lives in static device buffers that every graph reads and
+writes: a graph ends by copying the step's outputs into them, and inputs
+are copied into static input buffers before each replay. When the
+Sequencer's state tensors change shape (the trajectory rings grow), the
+buffers are made anew and every graph is captured again; when they are
+only replaced by other tensors (initialization, a loaded state), their
+values are copied in. A capture that fails raises: nothing falls back to
+eager execution.
+
+``ops.icp_cuda.LAUNCHES`` counts the ICP kernel's launches: a capture
+records the kernel without running it, so the count a graph recorded is
+taken back after the capture and added again at each replay. That count
+is bookkeeping; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold it
+against the kernels the profiler sees run on the card.
+"""
+
+from __future__ import annotations
+
+import gc
+
+import torch
+
+from mimosa_tpu_torch.ops import icp_cuda
+
+
+def flatten(state):
+    """A tuple of tensors and NamedTuples of tensors -> (tensors, spec)."""
+    flat, spec = [], []
+    for x in state:
+        if torch.is_tensor(x):
+            flat.append(x)
+            spec.append(None)
+        else:
+            flat.extend(x)
+            spec.append(type(x))
+    return flat, spec
+
+
+def unflatten(flat, spec):
+    out, i = [], 0
+    for cls in spec:
+        if cls is None:
+            out.append(flat[i])
+            i += 1
+        else:
+            n = len(cls._fields)
+            out.append(cls(*flat[i:i + n]))
+            i += n
+    return tuple(out)
+
+
+def _storages(tensors):
+    return {t.untyped_storage().data_ptr() for t in tensors}
+
+
+def write_back(bufs, outs):
+    """bufs[i] <- outs[i] for every output that is not the buffer itself.
+    An output that shares storage with a state buffer (a field passed
+    through into another field) is cloned first, so no copy reads a buffer
+    that an earlier copy has overwritten."""
+    held = _storages(bufs)
+    outs = [o if o is b or o.untyped_storage().data_ptr() not in held
+            else o.clone() for b, o in zip(bufs, outs)]
+    for b, o in zip(bufs, outs):
+        if o is not b:
+            b.copy_(o)
+
+
+class CapturedSteps:
+    """Captures and replays the Sequencer's step variants on one device."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.graphs = {}        # variant -> (CUDAGraph, ICP launches)
+        self.warm = set()       # variants that ran their eager warm-up
+        self.captures = 0       # graphs captured so far (all variants)
+        self.replays = 0
+        self._bufs = None       # the static state buffers
+        self._spec = None
+        self._inputs = {}       # variant -> static input buffers
+
+    def _adopt(self, state):
+        """The static state buffers, holding the values of ``state``."""
+        flat, self._spec = flatten(state)
+        bufs = self._bufs
+        if bufs is None or any(b.shape != t.shape
+                               for b, t in zip(bufs, flat)):
+            # new addresses: the graphs that hold the old ones must go
+            self.graphs.clear()
+            self._bufs = [t.clone() for t in flat]
+        else:
+            for b, t in zip(bufs, flat):
+                if t is not b:
+                    b.copy_(t)
+        return self._bufs
+
+    def _static_inputs(self, key, inputs):
+        """The variant's static input buffers, holding ``inputs`` (a
+        variant's inputs keep their shapes: the configuration fixes
+        them)."""
+        bufs = self._inputs.get(key)
+        if bufs is None:
+            bufs = self._inputs[key] = [None if x is None else x.clone()
+                                        for x in inputs]
+        else:
+            for b, x in zip(bufs, inputs):
+                if x is not None:
+                    b.copy_(x, non_blocking=True)
+        return bufs
+
+    def run(self, key, fn, state, inputs=()):
+        """One step of variant ``key``: ``fn(state, *inputs)`` returns the
+        new state (same structure, shapes and types). Returns the static
+        state buffers, which hold the new state once the stream has run."""
+        bufs = self._adopt(state)
+        ins = self._static_inputs(key, inputs)
+        if key not in self.warm:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                out = fn(unflatten(bufs, self._spec), *ins)
+                write_back(bufs, flatten(out)[0])
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.warm.add(key)
+        else:
+            if key not in self.graphs:
+                self.graphs[key] = self._capture(fn, bufs, ins)
+            graph, launches = self.graphs[key]
+            graph.replay()
+            icp_cuda.LAUNCHES += launches
+            self.replays += 1
+        return unflatten(bufs, self._spec)
+
+    def _capture(self, fn, bufs, ins):
+        """Record ``fn`` into a new graph. The cyclic garbage collector is
+        off meanwhile: a collection inside the capture could free CUDA
+        resources of unrelated objects (an old Sequencer's graphs), a call
+        a capture does not allow. Other threads' CUDA calls do not end
+        this thread's capture (``thread_local``)."""
+        graph = torch.cuda.CUDAGraph()
+        before = icp_cuda.LAUNCHES
+        collecting = gc.isenabled()
+        try:
+            # torch.cuda.graph collects once before the capture starts
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                gc.disable()
+                out = fn(unflatten(bufs, self._spec), *ins)
+                write_back(bufs, flatten(out)[0])
+        finally:
+            if collecting:
+                gc.enable()
+            launches = icp_cuda.LAUNCHES - before
+            icp_cuda.LAUNCHES = before
+        self.captures += 1
+        return graph, launches

@@ -9,31 +9,42 @@ window sliding) feeding device step functions on torch tensors:
   iterations with live ICP relinearization (the CUDA kernel of
   ``ops/icp_cuda.py`` on the card) -> absorb the scan into the prior ->
   keyframe test, map insert, eviction and plane refit -> trajectory and
-  debug rows;
+  debug rows; with ``merge_marginalize`` the window slide runs first in the
+  same step;
 * ``_marginalize``: Schur-complement slide of the window;
 * ``_init_lidar_step``: state setup + first-scan map seed.
 
+Scans travel to the device in one of three codecs, as in the JAX package:
+int16 xyz with a subtractive per-lane dither (the default), int16
+range-image rows decoded against a resident beam table
+(``range_transfer``), or plain f32. The int16 packs come from the port's
+C++ pack (``mimosa_tpu_torch/native``).
+
 The step reads nothing back to the host: counts, slots and indices stay
 0-d device tensors, inputs go up through pinned memory without a sync, and
-the trajectory / debug logs are device rings read once at the end.
+the trajectory / debug logs are device rings read once at the end. On the
+card each step variant is captured once as a CUDA graph and replayed
+(``graph/captured.py``); ``eager=True`` runs it op by op instead.
 
-Not ported yet (the constructor refuses these settings): the int16 and
-range-image transfer codecs, the photometric factor, rescue and rematch,
-merged marginalization, frozen-map localization, radar, odometry,
-out-of-order scan insertion and the bulk scheduler.
+Not ported yet (the constructor refuses these settings): rescue, rematch
+and frozen-map localization. Nor are the photometric factor, radar,
+odometry, out-of-order scan insertion and the bulk scheduler.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
+import typing
 
 import numpy as np
 import torch
 
-from mimosa_tpu_torch import require_cuda
+from mimosa_tpu_torch import native, require_cuda
 from mimosa_tpu_torch.core import lie
 from mimosa_tpu_torch.graph import window as win
+from mimosa_tpu_torch.graph.captured import CapturedSteps
 from mimosa_tpu_torch.imu import preintegration as pre
 from mimosa_tpu_torch.imu.buffer import ImuBuffer, estimate_attitude
 from mimosa_tpu_torch.lidar import deskew as dk
@@ -50,6 +61,44 @@ logger = logging.getLogger("mimosa_tpu_torch.sequencer")
 # upper triangle (21) of the scan's absorbed pose information [6,6], and
 # the 9 IMU-factor localizability eigenvalues (rot, pos, vel ascending)
 DBG_W = 17 + 21 + 9
+_TRIU6 = np.triu_indices(6)
+
+# the Sequencer's device state, in the order the step functions return it
+STATE = ("window", "vmap", "preints", "fv", "kf_q", "kf_p", "kf_count",
+         "traj_q", "traj_p", "debug_rec")
+
+
+class EstimatorState(typing.NamedTuple):
+    """Host-side snapshot of one optimized state."""
+
+    ts: float
+    q: np.ndarray      # [4] body->world rotation, wxyz Hamilton
+    p: np.ndarray      # [3] position in world
+    v: np.ndarray      # [3] velocity in world
+    bg: np.ndarray     # [3] gyro bias
+    ba: np.ndarray     # [3] accel bias
+    g_dir: np.ndarray  # [3] unit gravity direction in world
+
+
+def _extract_states(window):
+    """All window slots as one [K, 19] row matrix (q, p, v, bg, ba, g_dir),
+    so a state query reads the device once."""
+    K = window.q.shape[0]
+    return torch.cat([window.q, window.p, window.v, window.bg, window.ba,
+                      window.g_dir.expand(K, 3)], dim=1)
+
+
+def _slerp_np(q0, q1, a):
+    """Host-side quaternion slerp (wxyz), shortest arc."""
+    d = float(np.dot(q0, q1))
+    if d < 0.0:
+        q1, d = -q1, -d
+    if d > 0.9995:
+        q = q0 + a * (q1 - q0)
+    else:
+        th = np.arccos(min(max(d, -1.0), 1.0))
+        q = (np.sin((1.0 - a) * th) * q0 + np.sin(a * th) * q1) / np.sin(th)
+    return q / np.linalg.norm(q)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +136,9 @@ class SequencerConfig:
     # device-resident logging capacities (static)
     max_keyframes: int = 2048
     max_trajectory: int = 65536
-    # transfer codecs (the port has the plain f32 codec only)
+    # transfer codecs: int16 xyz with a subtractive per-lane dither (the
+    # default), int16 range-image rows (range_transfer, needs ray_dirs), or
+    # plain f32 (quantize_transfer=False)
     quantize_transfer: bool = True
     quant_pos_res: float = 0.0025
     quant_t_res: float = 4e-6
@@ -108,9 +159,21 @@ class SequencerConfig:
 
 
 # settings whose code paths are not ported yet, with the value they need
-_PORTED_ONLY = dict(quantize_transfer=False, range_transfer=False,
-                    merge_marginalize=False, rematch_on_motion=False,
-                    rescue_enabled=False, freeze_map=False)
+_PORTED_ONLY = dict(rematch_on_motion=False, rescue_enabled=False,
+                    freeze_map=False)
+
+
+def _scan_ncol(cfg):
+    """Packed-scan column count: range mode ships (r, t), the xyz modes
+    (x, y, z, t); the port has no photometric factor, so no intensity
+    column travels."""
+    return 2 if cfg.range_transfer else 4
+
+
+def _t_col(cfg):
+    """Column index of the packed point time (whose -32768 sentinel marks
+    invalid lanes in the int16 codecs)."""
+    return 1 if cfg.range_transfer else 3
 
 
 def _pad_scan(points, t_abs, valid, n):
@@ -196,19 +259,75 @@ def _keyframe_map_update(vmap, q_new, p_new, points_le, pt_valid,
     return vmap, kf_q, kf_p, kf_count + is_kf.to(torch.int32)
 
 
-def _decode_scan(scan_f, t_offset):
-    """Unpack a staged f32 scan [N, 4] (x, y, z, t_rel): point times shift
-    from scan-header-relative to the IMU-segment base by ``t_offset``."""
-    return scan_f[:, :3], scan_f[:, 3] + t_offset
+def _mul32(h, c):
+    """(h * c) mod 2^32 for int64 h in [0, 2^32) and a constant c < 2^32,
+    in two 16-bit halves of c so no product leaves int64 (torch has no
+    wrapping uint32 multiply)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _dither_lanes(n, dtype, device=None):
+    """Per-lane position dither [n, 3] in [-0.5, 0.5): bit for bit the
+    JAX package's ``_dither_lanes`` and the pack's dither01 (a Knuth
+    multiplicative hash of the packed row index with a xorshift finalizer,
+    one salt per axis)."""
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    cols = []
+    for salt in native._DITHER_SALTS:
+        h = _mul32(lane, 2654435761) ^ salt
+        h = h ^ (h >> 16)
+        h = _mul32(h, 2246822519)
+        h = h ^ (h >> 13)
+        cols.append(h.to(dtype) / 4294967296.0 - 0.5)
+    return torch.stack(cols, dim=-1)
+
+
+def _decode_scan(scan_f, pt_valid, t_offset, seq_cfg, d, ray_dirs=None,
+                 dither=None):
+    """Unpack a staged scan into (points [N,3], times [N], valid [N]).
+
+    int16 codecs: ``(x + 32767) * res`` in the JAX package's operation
+    order, the per-lane dither (``dither``, the resident
+    :func:`_dither_lanes` table) removed before scaling, and the sentinel
+    ``t == -32768`` as the validity mask, so ``pt_valid`` is unused. The
+    range codec rebuilds xyz = range * dir (+ offset for the affine [N,6]
+    table) from the resident ``ray_dirs``. The f32 codec ships (x, y, z,
+    t) and its own mask. Point times shift from scan-header-relative to the
+    IMU-segment base by ``t_offset``."""
+    tc = _t_col(seq_cfg)
+    if not seq_cfg.quantize_transfer:
+        return scan_f[:, :3], scan_f[:, tc] + t_offset, pt_valid
+    if seq_cfg.range_transfer:
+        rq = scan_f[:, 0].to(d) + 32767.0
+        if seq_cfg.quant_dither:
+            rq = rq - dither[:, 0]
+        r = rq * seq_cfg.quant_range_res
+        pts = r[:, None] * ray_dirs[:, :3]
+        if ray_dirs.shape[1] == 6:
+            pts = pts + ray_dirs[:, 3:6]
+    else:
+        q = scan_f[:, :3].to(d)
+        if seq_cfg.quant_dither:
+            q = q - dither
+        pts = q * seq_cfg.quant_pos_res
+    t_pts = (scan_f[:, tc].to(d) + 32767.0) * seq_cfg.quant_t_res + t_offset
+    return pts, t_pts, scan_f[:, tc] != -32768
 
 
 def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
                kf_q, kf_p, kf_count, traj_q, traj_p, debug_rec, q_bl, t_bl,
-               *, seq_cfg, win_cfg, map_cfg, geo_cfg, append=True):
+               ray_dirs=None, dither=None,
+               *, seq_cfg, win_cfg, map_cfg, geo_cfg,
+               marginalize_first=False, append=True):
     """The per-scan pipeline. ``imu_f`` [M+1, 8]: M IMU rows (acc3, gyro3,
     dt, valid) and a last row of scalars [n_active (count BEFORE the
     append), t_end_rel, traj_idx, scan_idx, t_offset, attach_slot].
+    ``scan_f`` / ``pt_valid`` are the staged scan in the configured codec
+    (:func:`_decode_scan`).
 
+    ``marginalize_first`` slides the window before the scan (the merged
+    marginalization: the host has already counted the slot free).
     ``append=False`` is the same-key path: fewer than
     ``min_imu_between_states`` IMU samples separate the scan end from the
     newest state, so the scan's factors act on that state instead of a new
@@ -221,7 +340,12 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     traj_idx = scalars[2].to(torch.int64)
     scan_idx = scalars[3].to(torch.int32)
 
-    pts, t_pts = _decode_scan(scan_f, scalars[4])
+    if marginalize_first:
+        window, preints, fv = _marginalize(window, preints, fv,
+                                           win_cfg=win_cfg)
+
+    pts, t_pts, pt_valid = _decode_scan(scan_f, pt_valid, scalars[4],
+                                        seq_cfg, d, ray_dirs, dither)
     accs, gyros, dts = imu_f[:, 0:3], imu_f[:, 3:6], imu_f[:, 6]
     seg_valid = imu_f[:, 7] > 0.5
     imu_ts = torch.cat([torch.zeros_like(dts[:1]), torch.cumsum(dts, 0)[:-1]])
@@ -358,24 +482,47 @@ def _marginalize(window, preints, fv, *, win_cfg):
     return (window, *_shift_segments(preints, fv))
 
 
+def _scan_state_step(state, scan_f, pt_valid, imu_f, *, resident, **kw):
+    """:func:`_scan_step` on the Sequencer's whole state (``STATE``);
+    ``resident`` = (q_bl, t_bl, ray_dirs, dither)."""
+    (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
+     debug_rec) = state
+    return _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
+                      kf_q, kf_p, kf_count, traj_q, traj_p, debug_rec,
+                      *resident, **kw)
+
+
+def _marginalize_step(state, *, win_cfg):
+    """:func:`_marginalize` on the Sequencer's whole state (``STATE``)."""
+    window, vmap, preints, fv, *logs = state
+    window, preints, fv = _marginalize(window, preints, fv, win_cfg=win_cfg)
+    return (window, vmap, preints, fv, *logs)
+
+
 # ---------------------------------------------------------------------------
 # host orchestrator
 # ---------------------------------------------------------------------------
 
 class Sequencer:
     """Host orchestrator of the geometric LiDAR-inertial slice.
-    Deterministic: the same inputs in the same order give the same
-    trajectory (up to f32 summation order in the map's scatter-adds).
+    Deterministic: on a given device the same inputs in the same order
+    give the same trajectory, bit for bit.
 
     ``device`` defaults to the first CUDA device and raises where there is
-    none; ``device="cpu"`` runs the plain versions on the CPU."""
+    none; ``device="cpu"`` runs the plain versions on the CPU. On the card
+    each step variant is captured as a CUDA graph after one eager warm-up
+    and replayed from then on; ``eager=True`` (an instrumentation switch,
+    e.g. for timing each stage) runs every step op by op. ``ray_dirs`` is
+    the per-lane beam table the range codec needs: [N,3] unit directions
+    (p = r * dir) or [N,6] direction + offset (p = s * dir + offset), at
+    full sensor density (``point_skip`` is applied here)."""
 
-    def __init__(self, seq_cfg: SequencerConfig | None = None,
+    def __init__(self, seq_cfg: SequencerConfig = SequencerConfig(),
                  win_cfg: win.WindowConfig = win.WindowConfig(),
                  map_cfg: vh.VoxelMapConfig = vh.VoxelMapConfig(),
                  geo_cfg: geo.GeometricConfig = geo.GeometricConfig(),
-                 *, device=None, dtype=torch.float32):
-        seq_cfg = seq_cfg or SequencerConfig(quantize_transfer=False)
+                 *, device=None, dtype=torch.float32, ray_dirs=None,
+                 eager=False):
         for name, need in _PORTED_ONLY.items():
             if getattr(seq_cfg, name) != need:
                 raise NotImplementedError(
@@ -389,6 +536,7 @@ class Sequencer:
             else torch.device(device)
         self.dtype = dtype
         f = dict(dtype=dtype, device=self.device)
+        self._init_codec(ray_dirs)
 
         self.imu = ImuBuffer(max_duration=seq_cfg.imu_max_buffer_duration,
                              acc_scale=seq_cfg.imu_acc_scale)
@@ -423,14 +571,80 @@ class Sequencer:
         self.timers = StageTimer()
         self._step_kw = dict(seq_cfg=seq_cfg, win_cfg=win_cfg,
                              map_cfg=map_cfg, geo_cfg=geo_cfg)
+        self._steps = {}             # step variant -> its function
+        self.graphs = None if eager or self.device.type != "cuda" \
+            else CapturedSteps(self.device)
+
+    def _init_codec(self, ray_dirs):
+        """The resident decode tables: the range codec's beam table and the
+        int16 codecs' per-lane dither."""
+        c, n = self.cfg, self.cfg.max_scan_points
+        self._ray_dirs_dev = self._dither_dev = self._beam_table = None
+        self._ray_dirs_lanes = 0
+        if c.range_transfer:
+            if ray_dirs is None:
+                raise ValueError(
+                    "range_transfer needs ray_dirs: the per-lane beam table "
+                    "at full sensor density, [N,3] unit directions "
+                    "(p = r*dir) or [N,6] dir+offset (p = s*dir + offset), "
+                    "e.g. io.synthetic.beam_dirs(lm)[0]")
+            if not c.quantize_transfer:
+                raise ValueError(
+                    "range_transfer requires quantize_transfer=True")
+            rd = np.asarray(ray_dirs, np.float32)[::c.point_skip]
+            if rd.ndim != 2 or rd.shape[1] not in (3, 6):
+                raise ValueError("ray_dirs must be [N,3] or [N,6]")
+            out = np.zeros((n, rd.shape[1]), np.float32)
+            out[:, 2] = 1.0               # pad lanes: unit z (masked out)
+            self._ray_dirs_lanes = min(len(rd), n)
+            out[:self._ray_dirs_lanes] = rd[:self._ray_dirs_lanes]
+            # the affine table goes to the pack too; the radial pack
+            # computes |p|
+            self._beam_table = out if rd.shape[1] == 6 else None
+            self._ray_dirs_dev = torch.from_numpy(out).to(self.device)
+        if c.quantize_transfer and c.quant_dither:
+            self._dither_dev = _dither_lanes(n, self.dtype, self.device)
 
     def _put(self, arr, dtype=None):
         """Host numpy -> device tensor. On the card the copy goes through
-        pinned memory and does not wait for the stream."""
+        a fresh pinned buffer and does not wait for the stream; the pinned
+        allocator keeps that buffer until the copy has run, so no later
+        scan can refill it while the copy is in flight."""
         t = torch.tensor(np.asarray(arr), dtype=dtype or self.dtype)
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    # ----------------------------------------------------------- step runs
+    def _state(self):
+        return tuple(getattr(self, k) for k in STATE)
+
+    def _run(self, key, inputs=()):
+        """Run step variant ``key`` (("scan", marginalize_first, append) or
+        ("marginalize",)) on the Sequencer's state: replayed from its CUDA
+        graph on the card, eagerly on the CPU or with ``eager=True``."""
+        fn = self._steps.get(key)
+        if fn is None:
+            fn = self._steps[key] = self._step_fn(key)
+        if self.graphs is None:
+            out = fn(self._state(), *inputs)
+        else:
+            out = self.graphs.run(key, fn, self._state(), inputs)
+        for k, v in zip(STATE, out):
+            setattr(self, k, v)
+
+    def _step_fn(self, key):
+        """The variant's function of (state, *inputs). It holds the
+        resident tensors it needs, not the Sequencer (no reference cycle:
+        a Sequencer is freed when its last reference goes)."""
+        if key[0] == "marginalize":
+            return functools.partial(_marginalize_step, win_cfg=self.win_cfg)
+        _, marginalize_first, append = key
+        return functools.partial(
+            _scan_state_step, resident=(self.q_bl, self.t_bl,
+                                        self._ray_dirs_dev, self._dither_dev),
+            marginalize_first=marginalize_first, append=append,
+            **self._step_kw)
 
     # ------------------------------------------------------- logged outputs
     @property
@@ -443,11 +657,43 @@ class Sequencer:
         p = self.traj_p[:n].cpu().numpy()
         return [(self._traj_ts[i], p[i], q[i]) for i in range(n)]
 
+    @property
+    def num_keyframes(self):
+        return int(self.kf_count)
+
     def debug_records(self):
         """Per-scan debug records [n_scans, 17]: num_inlier, 4 status
         counts, mean |r|, 3+3 degeneracy flags, photometric and rescue
         slots (zero in this slice)."""
         return self.debug_rec[: self.scan_idx, :17].cpu().numpy()
+
+    def imu_localizability_records(self):
+        """Per-scan IMU-factor localizability eigenvalues [n_scans, 9]
+        (rot[3], pos[3], vel[3], each ascending); zero rows for same-key
+        scans (no new IMU factor)."""
+        return self.debug_rec[: self.scan_idx, 38:47].cpu().numpy()
+
+    def pose_info_records(self):
+        """[n_traj, 6, 6] absorbed pose-information matrix per trajectory
+        row (zeros for the init row, which carries no scan registration)."""
+        dbg = self.debug_rec[: self.scan_idx, 17:38].cpu().numpy()
+        out = np.zeros((len(self._traj_ts), 6, 6), dbg.dtype)
+        for row, sc in enumerate(self._traj_src):
+            if 0 <= sc < len(dbg):
+                h = np.zeros((6, 6), dbg.dtype)
+                h[_TRIU6] = dbg[sc]
+                out[row] = h + h.T - np.diag(np.diag(h))
+        return out
+
+    @property
+    def last_icp(self):
+        """(num_inlier, status_counts[4], mean_abs_res, degen_rot[3],
+        degen_trans[3]) of the newest scan, or None."""
+        if self.scan_idx == 0:
+            return None
+        r = self.debug_rec[self.scan_idx - 1].cpu().numpy()
+        return (int(r[0]), r[1:5].astype(np.int64), float(r[5]),
+                r[6:9] > 0.5, r[9:12] > 0.5)
 
     def write_tum(self, path):
         """TUM trajectory log: ts x y z qx qy qz qw."""
@@ -456,8 +702,83 @@ class Sequencer:
                 f.write(f"{ts:.9f} {p[0]} {p[1]} {p[2]} "
                         f"{q[1]} {q[2]} {q[3]} {q[0]}\n")
 
+    # ----------------------------------------------------------- state query
+    # The public query interface of the JAX package's Sequencer on the
+    # dense window and the trajectory ring. Each reads the device once and
+    # answers in numpy; none runs inside a step.
+
+    def _window_rows(self):
+        return _extract_states(self.window).cpu().numpy()
+
+    def _mk_state(self, ts, row):
+        return EstimatorState(float(ts), row[0:4], row[4:7], row[7:10],
+                              row[10:13], row[13:16], row[16:19])
+
+    def current_state(self):
+        """Newest optimized state, or None before initialization."""
+        if not self.initialized or self.n_active == 0:
+            return None
+        rows = self._window_rows()
+        return self._mk_state(self.state_ts[-1], rows[self.n_active - 1])
+
+    def optimized_values(self):
+        """All live window states, oldest first."""
+        if not self.initialized or self.n_active == 0:
+            return []
+        rows = self._window_rows()
+        return [self._mk_state(self.state_ts[i], rows[i])
+                for i in range(min(self.n_active, len(self.state_ts)))]
+
+    def state_upto(self, ts, grace=4e-3):
+        """Newest live state with timestamp <= ts. A ts up to ``grace``
+        seconds older than the oldest live state still returns that oldest
+        state; beyond that, None."""
+        if not self.initialized or self.n_active == 0:
+            return None
+        i = int(np.searchsorted(np.asarray(self.state_ts[:self.n_active]),
+                                ts, side="right")) - 1
+        if i < 0:
+            if ts >= self.state_ts[0] - grace:
+                i = 0
+            else:
+                return None
+        return self._mk_state(self.state_ts[i], self._window_rows()[i])
+
+    def pose_at(self, ts, tol=5e-3, interpolate=False):
+        """(q_wxyz, p) at a logged timestamp, searched over the whole
+        trajectory ring including marginalized states, unlike
+        :meth:`state_upto`, which sees only the live window. Nearest entry
+        within ``tol`` seconds; with ``interpolate=True`` an in-range ts is
+        answered by slerp / lerp between the bracketing entries. None
+        outside the log (or outside tol)."""
+        n = len(self._traj_ts)
+        if n == 0:
+            return None
+        ts_arr = np.asarray(self._traj_ts)
+        q = self.traj_q[:n].cpu().numpy()
+        p = self.traj_p[:n].cpu().numpy()
+        if interpolate and ts_arr[0] <= ts <= ts_arr[-1]:
+            j = int(np.searchsorted(ts_arr, ts, side="left"))
+            if j == 0 or ts_arr[j] == ts:
+                return q[j], p[j]
+            i = j - 1
+            # rows can sit out of ts order (a same-key refresh); an
+            # inverted bracket would extrapolate, so fall back to the
+            # nearest entry within tol
+            if ts_arr[i] <= ts <= ts_arr[j]:
+                a = (ts - ts_arr[i]) / max(ts_arr[j] - ts_arr[i], 1e-12)
+                return (_slerp_np(np.asarray(q[i], np.float64),
+                                  np.asarray(q[j], np.float64),
+                                  a).astype(q.dtype),
+                        (1.0 - a) * p[i] + a * p[j])
+        k = int(np.argmin(np.abs(ts_arr - ts)))
+        if abs(ts_arr[k] - ts) > tol:
+            return None
+        return q[k], p[k]
+
     def _ensure_log_capacity(self):
-        """Double the device trajectory / debug rings when full."""
+        """Double the device trajectory / debug rings when full (the
+        captured steps are captured again for the new buffers)."""
         S = self.traj_q.shape[0]
         if max(self.scan_idx, len(self._traj_ts)) < S - 1:
             return
@@ -476,23 +797,49 @@ class Sequencer:
 
     # ----------------------------------------------------------------- scan
     def stage_scan(self, ts_header, points, t_rel, valid=None):
-        """Pad a scan to ``max_scan_points`` lanes of f32 (x, y, z, t_rel)
-        and start its transfer to the device. Returns the handle for
+        """Pack a scan in the configured codec (:func:`_decode_scan`) and
+        start its transfer to the device. Returns the handle for
         ``add_scan(ts_header, staged=handle)``."""
         points = np.asarray(points)
         t_rel = np.asarray(t_rel)
+        c, n = self.cfg, self.cfg.max_scan_points
         with self.timers.stage("t_prepare"):
+            if c.quantize_transfer:
+                if c.range_transfer:
+                    # lanes past the beam table would decode as ranges along
+                    # the unit-z pad direction, so refuse them
+                    n_lanes = min(-(-len(points) // c.point_skip), n)
+                    if n_lanes > self._ray_dirs_lanes:
+                        raise ValueError(
+                            f"range_transfer: scan has {n_lanes} post-skip "
+                            f"lanes but the ray_dirs table covers only "
+                            f"{self._ray_dirs_lanes}")
+                    scan_q, t_max = native.pack_range(
+                        points, t_rel, valid, None, c.point_skip, n,
+                        _scan_ncol(c), c.quant_range_res, c.quant_t_res,
+                        c.quant_int_res, dither=c.quant_dither,
+                        beam=self._beam_table)
+                else:
+                    scan_q, t_max = native.pack_scan(
+                        points, t_rel, valid, None, c.point_skip, n,
+                        _scan_ncol(c), c.quant_pos_res, c.quant_t_res,
+                        c.quant_int_res, dither=c.quant_dither)
+                raw = (points, t_rel, valid if valid is not None
+                       else np.isfinite(points).all(-1))
+                return dict(ts_header=float(ts_header),
+                            t_end=float(ts_header + t_max),
+                            scan_dev=self._put(scan_q, torch.int16),
+                            valid_dev=None, raw=raw)
             if valid is None:
                 valid = np.isfinite(points).all(-1)
             valid = np.asarray(valid, bool)
             t_end = float(ts_header
                           + (t_rel[valid].max() if valid.any() else 0.0))
             raw = (points, t_rel, valid)  # full density for the map seed
-            k = self.cfg.point_skip
+            k = c.point_skip
             if k > 1:
                 points, t_rel, valid = points[::k], t_rel[::k], valid[::k]
-            pts, tp, vd = _pad_scan(points, t_rel, valid,
-                                    self.cfg.max_scan_points)
+            pts, tp, vd = _pad_scan(points, t_rel, valid, n)
             scan = np.concatenate([pts, np.where(vd, tp, 0.0)[:, None]], 1)
             return dict(ts_header=float(ts_header), t_end=t_end,
                         scan_dev=self._put(scan),
@@ -531,10 +878,18 @@ class Sequencer:
         # rebase timestamps to the segment start on the host in f64: only
         # segment-relative times reach the device in f32
         base = self.last_state_ts
+        # the slide runs as its own step, or first inside the scan step
+        # (merge_marginalize); same-key attaches to an existing state, so
+        # it needs no free slot
         if not same_key:
             self._enforce_lag(t_end)
-            if self.n_active == self.win_cfg.K:
-                self._marginalize_host()
+        do_marg = not same_key and self.n_active == self.win_cfg.K
+        if do_marg and not self.cfg.merge_marginalize:
+            self._marginalize_host()
+        elif do_marg:
+            self.n_active -= 1
+            if self.state_ts:
+                self.state_ts.pop(0)
         if same_key:
             imu_pack[m, :6] = [self.n_active - 1, t_end - base,
                                len(self._traj_ts) - 1, self.scan_idx,
@@ -544,13 +899,10 @@ class Sequencer:
                                len(self._traj_ts), self.scan_idx,
                                ts_header - base, 0]
 
-        (self.window, self.vmap, self.preints, self.fv, self.kf_q, self.kf_p,
-         self.kf_count, self.traj_q, self.traj_p, self.debug_rec) = _scan_step(
-            self.window, self.vmap, self.preints, self.fv,
-            staged["scan_dev"], staged["valid_dev"], self._put(imu_pack),
-            self.kf_q, self.kf_p, self.kf_count, self.traj_q, self.traj_p,
-            self.debug_rec, self.q_bl, self.t_bl, append=not same_key,
-            **self._step_kw)
+        self._run(("scan", do_marg and self.cfg.merge_marginalize,
+                   not same_key),
+                  (staged["scan_dev"], staged["valid_dev"],
+                   self._put(imu_pack)))
         self.scan_idx += 1
         if same_key:
             # the refreshed trajectory row now carries this scan's pose
@@ -576,8 +928,7 @@ class Sequencer:
             self._marginalize_host()
 
     def _marginalize_host(self):
-        self.window, self.preints, self.fv = _marginalize(
-            self.window, self.preints, self.fv, win_cfg=self.win_cfg)
+        self._run(("marginalize",))
         self.n_active -= 1
         if self.state_ts:
             self.state_ts.pop(0)

@@ -420,13 +420,12 @@ def marginalize_oldest(w: Window, preints: pre.PreintState,
     def shift(a):
         return torch.cat([a[1:], a[-1:]], dim=0)
 
-    ts = shift(w.ts)
-    ts[-1] = 0.0
-    active = shift(w.active)
-    active[-1] = False
+    # the freed last slot: zero time, inactive (by concatenation; setting
+    # an element from a Python number would copy it from the host)
     return w._replace(
         q=shift(w.q), p=shift(w.p), v=shift(w.v), bg=shift(w.bg),
-        ba=shift(w.ba), ts=ts, active=active,
+        ba=shift(w.ba), ts=torch.cat([w.ts[1:], torch.zeros_like(w.ts[:1])]),
+        active=torch.cat([w.active[1:], torch.zeros_like(w.active[:1])]),
         H_prior=Hp, b_prior=bp,
         lin_q=shift(w.lin_q), lin_p=shift(w.lin_p), lin_v=shift(w.lin_v),
         lin_bg=shift(w.lin_bg), lin_ba=shift(w.lin_ba),

@@ -1,7 +1,8 @@
 """Synthetic LiDAR+IMU dataset generator for end-to-end replays.
 
-Port of ``mimosa_tpu/io/synthetic.py`` (the room world, the analytic
-trajectory, the spinning-LiDAR raycast and the IMU stream) in numpy f64.
+Port of ``mimosa_tpu/io/synthetic.py`` (the room and corridor worlds, the
+analytic trajectory, the spinning-LiDAR raycast and the IMU stream) in
+numpy f64.
 The JAX package differentiates the trajectory with ``jax.jacfwd``; here the
 derivatives of the sine-of-smoothstep trajectory are written in closed
 form, including the JAX convention at the clip's corners (a derivative of
@@ -43,6 +44,20 @@ def room_world(lx=16.0, ly=8.0, lz=4.0):
         r([lx, 0, 0], [0, ly, 0], [0, 0, lz]),         # wall x=lx
         r([lx * 0.4, 0, 0], [0, ly * 0.55, 0], [0, 0, lz * 0.8]),  # partition
         r([lx * 0.7, ly, 0], [0, -ly * 0.5, 0], [0, 0, lz * 0.7]),  # partition
+    ]
+
+
+def corridor_world(length=80.0, w=4.0, h=3.0):
+    """An 'infinite' corridor (no end caps within lidar range): translation
+    along x is geometrically unobservable from its planes."""
+    def r(o, e1, e2):
+        return Rect(np.asarray(o, float), np.asarray(e1, float),
+                    np.asarray(e2, float))
+    return [
+        r([0, 0, 0], [length, 0, 0], [0, w, 0]),       # floor
+        r([0, 0, h], [length, 0, 0], [0, w, 0]),       # ceiling
+        r([0, 0, 0], [length, 0, 0], [0, 0, h]),       # wall y=0
+        r([0, w, 0], [length, 0, 0], [0, 0, h]),       # wall y=w
     ]
 
 

@@ -1,12 +1,14 @@
-"""Synthetic end-to-end replay of the port (the room_clean configuration).
+"""Synthetic end-to-end replay of the port (the scoreboard's sequences).
 
 ``python -m mimosa_tpu_torch.io.synthetic_replay [--device cpu]`` generates
 the synthetic room sequence, replays it through the port's Sequencer
-exactly as ``mimosa_tpu/io/synthetic_replay.py`` drives the JAX one, and
-prints the ATE. It runs on the first CUDA device unless ``--device`` names
-another, and raises where there is no card. The port has the plain f32 transfer codec only, so the
-replay runs with ``quantize_transfer=False`` where the JAX default
-quantizes to int16.
+exactly as ``mimosa_tpu/io/synthetic_replay.py`` drives the JAX one, with
+the same default transfer codec (int16 with the subtractive dither), and
+prints the ATE. :func:`run` takes the world, trajectory, noise, codec and
+registration settings of the JAX package's ``run`` that the geometric
+scoreboard rows use (``scripts/dataset_evaluation.py``). It runs on the
+first CUDA device unless ``--device`` names another, and raises where there
+is no card.
 """
 
 from __future__ import annotations
@@ -56,26 +58,33 @@ def trajectory_ate(s, data):
 
 
 def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
-        range_noise=0.0):
-    """Replay the room_clean sequence on ``device`` (default: the first CUDA
-    device; raises where there is none)."""
+        range_noise=0.0, world=None, tc=None, range_transfer=False,
+        use_4dof=False, project_degenerate=False):
+    """Replay a synthetic sequence (default: room_clean) on ``device``
+    (default: the first CUDA device; raises where there is none)."""
     device = require_cuda() if device is None else torch.device(device)
+    world = world if world is not None else syn.room_world()
+    tc = tc if tc is not None else syn.TrajectoryConfig(t_total=t_total)
     lm = syn.LidarModel()
-    data = syn.generate(syn.room_world(), syn.TrajectoryConfig(
-        t_total=t_total), lm, seed=seed, imu_noise=imu_noise,
-        range_noise=range_noise)
+    data = syn.generate(world, tc, lm, seed=seed, imu_noise=imu_noise,
+                        range_noise=range_noise)
     s = seq.Sequencer(
         seq_cfg=seq.SequencerConfig(
             max_scan_points=max(4096, lm.n_rows * lm.n_cols),
             n_geo_points=4096, n_map_points=8192,
             geo_leaf=0.4, map_insert_leaf=0.15,
             keyframe_trans_thresh=0.3, keyframe_rot_thresh=0.15,
-            quantize_transfer=False),
+            range_transfer=range_transfer),
         win_cfg=win.WindowConfig(K=6),
         map_cfg=vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17,
                                   plane_min_points=5, lru_horizon=0),
-        geo_cfg=geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0),
-        device=device)
+        geo_cfg=geo.GeometricConfig(
+            sigma=0.05, loc_count_thresh=50.0, use_4dof=use_4dof,
+            project_degenerate=project_degenerate),
+        device=device,
+        # the range codec's beam table: exact for this generator, whose
+        # noise is radial
+        ray_dirs=syn.beam_dirs(lm)[0] if range_transfer else None)
     t0 = time.perf_counter()
     n_scans = replay(s, data)
     if s.device.type == "cuda":

@@ -46,6 +46,7 @@ def integrate_imu_poses(q0, p0, v0, accs, gyros, ts, bg, ba, gravity,
                             return_prefixes=True)
     R0 = lie.quat_to_mat(q0)
     # state i composes samples 0..i-1 -> shift the prefixes right by one
+    # (the identity is built on the device: no host copy inside the step)
     qid = lie.quat_identity(dtype, accs.device)[None]
     z3 = torch.zeros((1, 3), dtype=dtype, device=accs.device)
     dq = torch.cat([qid, pref.dq[:-1]])

@@ -139,6 +139,23 @@ def find_slots(vmap: VoxelMap, vc, cfg: VoxelMapConfig, probes=None):
     return slot, found
 
 
+def _scatter_add(x, idx, v):
+    """x with x[idx] += v, duplicates summed in lane order on both
+    devices. On the card ``index_add`` adds with atomics in whatever order
+    they land (two runs of one step would differ in the last bits), so
+    there the sort-based accumulating ``index_put`` runs. On the CPU
+    ``index_add`` is the serial lane-order sum. The CPU's accumulating
+    ``index_put`` keeps lane order only on one thread: on more, past
+    torch's parallel grain of 32768 lanes, it does not, which moves the
+    map's normals by up to 3e-4 at the JAX parity tests' sizes
+    (``test_update_planes_matches_jax`` and
+    ``test_query_planes_matches_jax`` in ``tests/test_torch_lidar.py``,
+    tolerance 1e-4)."""
+    if x.device.type == "cpu":
+        return x.index_add(0, idx, v)
+    return x.index_put((idx,), v, accumulate=True)
+
+
 def insert(vmap: VoxelMap, points, valid, scan_idx, cfg: VoxelMapConfig,
            return_slots=False):
     """Insert world-frame points [N,3] (mask ``valid``) at scan ``scan_idx``.
@@ -208,9 +225,9 @@ def insert(vmap: VoxelMap, points, valid, scan_idx, cfg: VoxelMapConfig,
     new = vmap._replace(
         coords=coords,
         occupied=occupied,
-        n=vmap.n.index_add(0, tgt, w),
-        psum=vmap.psum.index_add(0, tgt, p * w[:, None]),
-        pssum=vmap.pssum.index_add(0, tgt, outer * w[:, None]),
+        n=_scatter_add(vmap.n, tgt, w),
+        psum=_scatter_add(vmap.psum, tgt, p * w[:, None]),
+        pssum=_scatter_add(vmap.pssum, tgt, outer * w[:, None]),
         last_touch=vmap.last_touch.scatter_reduce(
             0, tgt, scan.expand(n_pts), "amax"),
     )
@@ -260,13 +277,20 @@ def _fit_planes(n_raw, occupied, psum, pssum, cfg):
     return mean, nrm, valid
 
 
+def _clear_write_off(valid):
+    """``valid`` with the write-off row False, by a mask made on the device
+    (``valid[-1] = False`` would copy the Python bool from pageable host
+    memory: a sync, and no capture)."""
+    return valid & (torch.arange(valid.shape[0], device=valid.device)
+                    < valid.shape[0] - 1)
+
+
 def update_planes(vmap: VoxelMap, cfg: VoxelMapConfig) -> VoxelMap:
     """Refit every voxel's plane from its accumulated moments."""
     mean, nrm, valid = _fit_planes(vmap.n, vmap.occupied, vmap.psum,
                                    vmap.pssum, cfg)
-    valid = valid.clone()
-    valid[-1] = False
-    return vmap._replace(mean=mean, normal=nrm, plane_valid=valid)
+    return vmap._replace(mean=mean, normal=nrm,
+                         plane_valid=_clear_write_off(valid))
 
 
 def update_planes_at(vmap: VoxelMap, slots, cfg: VoxelMapConfig) -> VoxelMap:
@@ -274,12 +298,11 @@ def update_planes_at(vmap: VoxelMap, slots, cfg: VoxelMapConfig) -> VoxelMap:
     slots recompute identical values, so the scatter is race-free."""
     mean, nrm, valid = _fit_planes(vmap.n[slots], vmap.occupied[slots],
                                    vmap.psum[slots], vmap.pssum[slots], cfg)
-    plane_valid = vmap.plane_valid.index_put((slots,), valid)
-    plane_valid[-1] = False
     return vmap._replace(
         mean=vmap.mean.index_put((slots,), mean),
         normal=vmap.normal.index_put((slots,), nrm),
-        plane_valid=plane_valid,
+        plane_valid=_clear_write_off(
+            vmap.plane_valid.index_put((slots,), valid)),
     )
 
 

@@ -1,0 +1,248 @@
+// Native point-cloud decode + filter pass.
+//
+// The host-side hot path of scan ingestion: strided extraction of
+// (x, y, z, intensity, t, ring) from raw PointCloud2 bytes with the
+// per-point validity chain fused in (range / intensity windows, skip
+// divisors, NaN) — the C++ counterpart of the reference's
+// lidar::Manager::prepareInput (reference src/lidar/manager.cpp:149-383,
+// include/mimosa/lidar/utils.hpp:133-181). One sequential pass, branch-lean,
+// writing dense padded output arrays the device kernels consume directly.
+//
+// ABI: plain C, driven from Python via ctypes
+// (mimosa_tpu_torch/native/__init__.py, which binds the two packs; the
+// decode and ring-sort entry points wait for the port's pointcloud2
+// reader). The port's copy of mimosa_tpu/native/decode.cc.
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <limits>
+
+namespace {
+
+// field dtype codes matching sensor_msgs/PointField
+enum Dtype : int32_t {
+  kNone = 0,
+  kI8 = 1,
+  kU8 = 2,
+  kI16 = 3,
+  kU16 = 4,
+  kI32 = 5,
+  kU32 = 6,
+  kF32 = 7,
+  kF64 = 8,
+};
+
+inline double read_as_double(const uint8_t* p, int32_t dtype) {
+  switch (dtype) {
+    case kI8:
+      return static_cast<double>(*reinterpret_cast<const int8_t*>(p));
+    case kU8:
+      return static_cast<double>(*p);
+    case kI16: {
+      int16_t v;
+      std::memcpy(&v, p, 2);
+      return static_cast<double>(v);
+    }
+    case kU16: {
+      uint16_t v;
+      std::memcpy(&v, p, 2);
+      return static_cast<double>(v);
+    }
+    case kI32: {
+      int32_t v;
+      std::memcpy(&v, p, 4);
+      return static_cast<double>(v);
+    }
+    case kU32: {
+      uint32_t v;
+      std::memcpy(&v, p, 4);
+      return static_cast<double>(v);
+    }
+    case kF32: {
+      float v;
+      std::memcpy(&v, p, 4);
+      return static_cast<double>(v);
+    }
+    case kF64: {
+      double v;
+      std::memcpy(&v, p, 8);
+      return v;
+    }
+    default:
+      return 0.0;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode + filter one cloud.
+//
+// offsets/dtypes: 6 entries for {x, y, z, intensity, t, ring}; dtype 0 marks
+// an absent field. t_scale converts the raw time value to seconds
+// (1e-9 for nanosecond fields, 1.0 for float seconds); t_offset is
+// subtracted after scaling (e.g. the header stamp for absolute-stamped
+// formats). Returns the number of points written (<= max_out).
+int64_t mimosa_decode_filtered(
+    const uint8_t* data, int64_t n_points, int64_t point_step,
+    const int64_t* offsets, const int32_t* dtypes, double t_scale,
+    double t_offset,
+    // filters (ref lidar/manager.cpp:244-335)
+    double range_min, double range_max, double intensity_min,
+    double intensity_max, int64_t point_skip, int64_t ring_skip,
+    // outputs, each sized max_out
+    int64_t max_out, float* out_xyz /* [max_out*3] */, float* out_intensity,
+    double* out_t, int32_t* out_ring) {
+  const double r2min = range_min * range_min;
+  const double r2max = range_max * range_max;
+  int64_t w = 0;
+  for (int64_t i = 0; i < n_points && w < max_out; ++i) {
+    if (point_skip > 1 && (i % point_skip) != 0) continue;
+    const uint8_t* p = data + i * point_step;
+    const double x = read_as_double(p + offsets[0], dtypes[0]);
+    const double y = read_as_double(p + offsets[1], dtypes[1]);
+    const double z = read_as_double(p + offsets[2], dtypes[2]);
+    if (!std::isfinite(x) || !std::isfinite(y) || !std::isfinite(z)) continue;
+    const double r2 = x * x + y * y + z * z;
+    if (r2 < r2min || r2 > r2max) continue;
+    double inten = 0.0;
+    if (dtypes[3] != kNone) {
+      inten = read_as_double(p + offsets[3], dtypes[3]);
+      if (inten < intensity_min || inten > intensity_max) continue;
+    }
+    int32_t ring = -1;
+    if (dtypes[5] != kNone) {
+      ring = static_cast<int32_t>(read_as_double(p + offsets[5], dtypes[5]));
+      if (ring_skip > 1 && (ring % ring_skip) != 0) continue;
+    }
+    double t = 0.0;
+    if (dtypes[4] != kNone) {
+      t = read_as_double(p + offsets[4], dtypes[4]) * t_scale - t_offset;
+    }
+    out_xyz[w * 3 + 0] = static_cast<float>(x);
+    out_xyz[w * 3 + 1] = static_cast<float>(y);
+    out_xyz[w * 3 + 2] = static_cast<float>(z);
+    out_intensity[w] = static_cast<float>(inten);
+    out_t[w] = t;
+    out_ring[w] = ring;
+    ++w;
+  }
+  return w;
+}
+
+// Counting-sort reorganization of points by ring (the reference's
+// organize_pointcloud_by_ring, src/lidar/manager.cpp:205-242): stable
+// within a ring, rings ascending. idx_out[k] = original index of the k-th
+// point in ring-major order.
+int64_t mimosa_ring_sort(const int32_t* rings, int64_t n, int32_t n_rings,
+                         int64_t* idx_out, int64_t* counts_scratch) {
+  for (int32_t r = 0; r <= n_rings; ++r) counts_scratch[r] = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t r = rings[i];
+    if (r < 0 || r >= n_rings) r = n_rings - 1;
+    ++counts_scratch[r];
+  }
+  int64_t acc = 0;
+  for (int32_t r = 0; r < n_rings; ++r) {
+    const int64_t c = counts_scratch[r];
+    counts_scratch[r] = acc;
+    acc += c;
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t r = rings[i];
+    if (r < 0 || r >= n_rings) r = n_rings - 1;
+    idx_out[counts_scratch[r]++] = i;
+  }
+  return n;
+}
+
+}  // extern "C"
+
+// Fused scan staging pack (the host hot path of Sequencer.stage_scan):
+// point-skip + pad/truncate + int16 quantization with the invalid-lane
+// sentinel in ONE pass, replacing a ~6-pass numpy pipeline. Also returns
+// t_end = max t over valid lanes of the FULL-density scan (computed
+// before skipping, matching the staging semantics).
+//
+// pts: [n_in,3], t_rel: [n_in], inten: [n_in] or null, valid: [n_in] or
+// null (null = finite(pts)). dtype codes: 7=f32, 8=f64 (see Dtype).
+// out: [n_out, ncol] int16, ncol 4 (x,y,z,t) or 5 (+intensity).
+// Lanes with t quant sentinel -32768 are invalid (dropped/padding).
+// Deterministic per-lane dither in [-0.5, 0.5) LSB (Knuth multiplicative
+// hash of the lane index + per-axis salt). Subtractive dither decorrelates
+// the quantization lattice: on low-noise scans, points snapped to a 5 mm
+// grid bias voxel plane normals toward lattice directions (staircase
+// aliasing) badly enough to halve ICP inliers — measured on the noiseless
+// synthetic bag replay (ATE 2.5 m gridded vs 0.02 m dithered).
+
+static inline double dither01(uint64_t i, uint32_t salt) {
+  uint32_t h = static_cast<uint32_t>(i) * 2654435761u ^ salt;
+  h ^= h >> 16;
+  h *= 2246822519u;
+  h ^= h >> 13;
+  return h * (1.0 / 4294967296.0) - 0.5;
+}
+
+#include "pack.inc"
+
+extern "C" int64_t mimosa_pack_scan(const void* pts, int32_t pts_dtype,
+                         const void* t_rel, int32_t t_dtype,
+                         const uint8_t* valid, const void* inten,
+                         int32_t inten_dtype, int64_t n_in, int64_t skip,
+                         int64_t n_out, int32_t ncol, double pos_res,
+                         double t_res, double int_res, int32_t dither,
+                         int16_t* out, double* t_end_out) {
+  // dtype dispatch into the templated two-pass implementation (pack.inc)
+  // so each instantiation is a tight, autovectorizable loop
+  const bool p64 = pts_dtype == kF64;
+  const bool t64 = t_dtype == kF64;
+  const bool i64 = inten_dtype == kF64;
+#define CALL(PT, TT, IT)                                                   \
+  pack_scan_impl<PT, TT, IT>(static_cast<const PT*>(pts),                  \
+                             static_cast<const TT*>(t_rel), valid,         \
+                             static_cast<const IT*>(inten), n_in, skip,    \
+                             n_out, ncol, pos_res, t_res, int_res, dither, \
+                             out, t_end_out)
+  if (p64) {
+    if (t64) return i64 ? CALL(double, double, double)
+                        : CALL(double, double, float);
+    return i64 ? CALL(double, float, double) : CALL(double, float, float);
+  }
+  if (t64) return i64 ? CALL(float, double, double)
+                      : CALL(float, double, float);
+  return i64 ? CALL(float, float, double) : CALL(float, float, float);
+#undef CALL
+}
+
+extern "C" int64_t mimosa_pack_range(const void* pts, int32_t pts_dtype,
+                                     const void* t_rel, int32_t t_dtype,
+                                     const uint8_t* valid, const void* inten,
+                                     int32_t inten_dtype, const float* beam,
+                                     int64_t n_in,
+                                     int64_t skip, int64_t n_out,
+                                     int32_t ncol, double r_res,
+                                     double t_res, double int_res,
+                                     int32_t dither, int16_t* out,
+                                     double* t_end_out) {
+  const bool p64 = pts_dtype == kF64;
+  const bool t64 = t_dtype == kF64;
+  const bool i64 = inten_dtype == kF64;
+#define CALLR(PT, TT, IT)                                                 \
+  pack_range_impl<PT, TT, IT>(static_cast<const PT*>(pts),                \
+                              static_cast<const TT*>(t_rel), valid,       \
+                              static_cast<const IT*>(inten), beam, n_in,  \
+                              skip,                                       \
+                              n_out, ncol, r_res, t_res, int_res, dither, \
+                              out, t_end_out)
+  if (p64) {
+    if (t64) return i64 ? CALLR(double, double, double)
+                        : CALLR(double, double, float);
+    return i64 ? CALLR(double, float, double) : CALLR(double, float, float);
+  }
+  if (t64) return i64 ? CALLR(float, double, double)
+                      : CALLR(float, double, float);
+  return i64 ? CALLR(float, float, double) : CALLR(float, float, float);
+#undef CALLR
+}

@@ -35,8 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mimosa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches made through :func:`launch` (one per linearize call on
-# the card)
+# kernel launches: one per :func:`launch`; a captured CUDA graph adds the
+# launches it recorded at each replay (``graph/captured.py``)
 LAUNCHES = 0
 
 # The kernel's output layout: ICPResult field -> (buffer, offset, shape).
@@ -71,6 +71,8 @@ TRACE_POINTS = ("entry", "staged", "pass 1", "CTA sums", "cluster sync 1",
 _lib = None
 # (seconds, compiler output) of the build this process loaded
 build_info = None
+# devices on which the library's kernel attributes are set
+_ready = set()
 
 
 def _nvcc():
@@ -113,10 +115,12 @@ def build():
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icp_linearize.argtypes = [p] * 8 + [i] + [f] * 7 + [p] * 5
-    for fn in (lib.icp_linearize, lib.icp_layout, lib.icp_trace_points):
+    for fn in (lib.icp_linearize, lib.icp_layout, lib.icp_trace_points,
+               lib.icp_init):
         fn.restype = i
     lib.icp_layout.argtypes = [i]
     lib.icp_trace_points.argtypes = []
+    lib.icp_init.argtypes = []
     want = _expected_layout()
     got = [lib.icp_layout(k) for k in range(len(want) + 1)]
     if got != want + [-1]:
@@ -126,6 +130,19 @@ def build():
         raise RuntimeError("kernel trace points do not match the wrapper's")
     _lib = lib
     build_info = (time.perf_counter() - t0, log)
+    return lib
+
+
+def _load(dev):
+    """The library, with its kernel attributes set on ``dev`` (once per
+    device, outside any launch)."""
+    lib = build()
+    if dev.index not in _ready:
+        with torch.cuda.device(dev):
+            code = lib.icp_init()
+        if code != 0:
+            raise RuntimeError(f"icp_init failed on {dev}: CUDA error {code}")
+        _ready.add(dev.index)
     return lib
 
 
@@ -189,8 +206,8 @@ def launch(matches, points_b, valid, q, t, cfg: geo.GeometricConfig,
                               or tuple(trace.shape) != (len(TRACE_POINTS),)):
         raise ValueError("trace must be an int64 tensor "
                          f"[{len(TRACE_POINTS)}] on {points_b.device}")
-    lib = build()
     dev = points_b.device
+    lib = _load(dev)
     f32 = torch.empty(SIZES[F32], dtype=torch.float32, device=dev)
     i32 = torch.empty(SIZES[I32], dtype=torch.int32, device=dev)
     u8 = torch.empty(SIZES[U8], dtype=torch.uint8, device=dev)

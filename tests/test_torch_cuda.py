@@ -1,7 +1,10 @@
-"""The port's CUDA ICP kernel against its plain PyTorch version, on the card.
+"""The port's CUDA ICP kernel against its plain PyTorch version, and the
+scan step captured as CUDA graphs against the same step run op by op, on
+the card.
 
 Every test here needs an NVIDIA GPU and nvcc (``cuda`` marker) and skips
-without one. The file imports nothing of JAX, so it runs on a machine that
+without one (but the native pack's build-failure test, which needs g++
+only). The file imports nothing of JAX, so it runs on a machine that
 has only PyTorch and the CUDA toolkit; ``tests/conftest.py`` imports jax,
 so run it there without the conftest:
 
@@ -14,7 +17,10 @@ torch ``eigh3`` in f64 on the same blocks: eigenvalues within
 1e-4 max|lambda|, each eigenvector column up to sign with
 ``|v . v_ref| >= 1 - 1e-4``. Where an eigenvalue repeats (a rank-deficient
 block) its eigenvectors are any orthonormal basis of the eigenspace, so
-there the eigenspace is compared: projectors within 1e-4.
+there the eigenspace is compared: projectors within 1e-4. A captured step
+and an eager step from one state: the tolerances of
+``tests/test_torch_slice.py`` (counts and flags exact); two replays of one
+graph from one state: the same bits (but the map's write-off row).
 """
 
 import numpy as np
@@ -309,3 +315,194 @@ def test_staged_and_unstaged_paths_agree_bitwise(scene, n):
     torch.cuda.synchronize()
     for x, y in zip(staged, unstaged):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------ the captured scan step
+
+def _room_sequencer(eager, **seq_kw):
+    """The room_clean configuration of ``io.synthetic_replay.run`` (16x256
+    LiDAR, int16 codec), captured or eager."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+
+    kw = dict(max_scan_points=4096, n_geo_points=4096, n_map_points=8192,
+              geo_leaf=0.4, map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
+              keyframe_rot_thresh=0.15)
+    kw.update(seq_kw)
+    return seq.Sequencer(
+        seq.SequencerConfig(**kw), win.WindowConfig(K=6),
+        vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17,
+                          plane_min_points=5, lru_horizon=0),
+        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0),
+        device="cuda", eager=eager)
+
+
+@pytest.fixture(scope="module")
+def room(dev):
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    return syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=3.0),
+                        syn.LidarModel(), seed=0)
+
+
+def _feed(s, data, ks, imu_i=0):
+    from mimosa_tpu_torch.io.synthetic_replay import feed
+
+    for k in ks:
+        imu_i = feed(s, data, k, imu_i)
+    return imu_i
+
+
+def _state(s):
+    from mimosa_tpu_torch import convert
+
+    torch.cuda.synchronize()
+    return convert.sequencer_state(s)
+
+
+def _assert_states_close(a, b):
+    """The slice tolerances of tests/test_torch_slice.py: window states to
+    1e-4, the prior to rtol 1e-2 of its scale, map counts and flags exact
+    (but the write-off row), moments to rtol 1e-4, debug counts and flags
+    exact."""
+    for k in ("q", "p", "v", "g_dir", "bg", "ba"):
+        np.testing.assert_allclose(a["window"][k], b["window"][k], atol=1e-4)
+    np.testing.assert_array_equal(a["window"]["active"],
+                                  b["window"]["active"])
+    H, Hr = a["window"]["H_prior"], b["window"]["H_prior"]
+    np.testing.assert_allclose(H, Hr, rtol=1e-2,
+                               atol=1e-4 * np.abs(Hr).max())
+    for k in ("coords", "occupied", "n", "plane_valid", "last_touch"):
+        np.testing.assert_array_equal(a["vmap"][k][:-1], b["vmap"][k][:-1])
+    for k in ("psum", "pssum"):
+        np.testing.assert_allclose(a["vmap"][k], b["vmap"][k], rtol=1e-4,
+                                   atol=1e-5 * np.abs(b["vmap"][k]).max())
+    np.testing.assert_array_equal(a["kf_count"], b["kf_count"])
+    d, dr = a["debug_rec"], b["debug_rec"]
+    np.testing.assert_array_equal(d[:, :5], dr[:, :5])
+    np.testing.assert_array_equal(d[:, 6:17], dr[:, 6:17])
+    np.testing.assert_allclose(a["traj_p"], b["traj_p"], atol=1e-4)
+    assert a["host"] == b["host"]
+
+
+def _assert_states_equal(a, b):
+    for name in ("window", "vmap", "preints"):
+        for k, x in a[name].items():
+            y = b[name][k]
+            if name == "vmap":           # the write-off row takes any lane
+                x, y = x[:-1], y[:-1]
+            np.testing.assert_array_equal(x, y, err_msg=f"{name}.{k}")
+    for k in ("fv", "kf_q", "kf_p", "kf_count", "traj_q", "traj_p",
+              "debug_rec"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert a["host"] == b["host"]
+
+
+def test_captured_step_matches_eager(room):
+    """From the same state, one scan step replayed from its graph and one
+    run op by op agree to the slice tolerances."""
+    from mimosa_tpu_torch import convert
+
+    eager, graph = _room_sequencer(True), _room_sequencer(False)
+    n = 10
+    imu_e = _feed(eager, room, range(n))
+    _feed(graph, room, range(n))
+    key = ("scan", False, True)
+    assert key in graph.graphs.graphs      # captured by now
+    convert.load_sequencer_state(graph, _state(eager))
+    _feed(eager, room, [n], imu_e)
+    _feed(graph, room, [n], imu_e)
+    _assert_states_close(_state(graph), _state(eager))
+
+
+def test_two_replays_are_bitwise_equal(room):
+    """The same state and scan through one graph twice: the same bits."""
+    from mimosa_tpu_torch import convert
+
+    s = _room_sequencer(False)
+    n = 10
+    imu_i = _feed(s, room, range(n))
+    start = _state(s)
+    captures = s.graphs.captures
+    _feed(s, room, [n], imu_i)
+    first = _state(s)
+    convert.load_sequencer_state(s, start)
+    _feed(s, room, [n], imu_i)
+    _assert_states_equal(_state(s), first)
+    assert s.graphs.captures == captures   # replayed, not captured again
+
+
+def test_replay_launches_the_icp_kernel_per_gn_iteration(room):
+    """A replay of the append step adds n_gn_iters + 1 launches; the
+    capture itself adds none. The profiler sees as many ICP kernels run on
+    the card as the count says."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = _room_sequencer(False)
+    imu_i = _feed(s, room, range(4))
+    key = ("scan", False, True)
+    assert key in s.graphs.warm and key in s.graphs.graphs
+    graph, launches = s.graphs.graphs[key]
+    assert launches == s.cfg.n_gn_iters + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(4, 8):
+            before, replays = icp_cuda.LAUNCHES, s.graphs.replays
+            imu_i = _feed(s, room, [k], imu_i)
+            torch.cuda.synchronize()
+            assert s.graphs.replays > replays
+            assert icp_cuda.LAUNCHES - before == launches
+    icp = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "icp_linearize" in e.name]
+    assert len(icp) == 4 * launches
+
+
+def test_ring_growth_recaptures_and_keeps_the_trajectory(room):
+    """With 8 trajectory rows the rings grow twice in the replay; the step
+    is captured again for the new buffers, and the trajectory equals the
+    eager run's."""
+    eager = _room_sequencer(True, max_trajectory=8)
+    graph = _room_sequencer(False, max_trajectory=8)
+    _feed(eager, room, range(len(room["scans"])))
+    _feed(graph, room, range(len(room["scans"])))
+    assert graph.traj_q.shape[0] == eager.traj_q.shape[0] == 32
+    assert graph.graphs.captures >= 4     # append and marginalize, twice
+    a = np.asarray([p for _, p, _ in graph.trajectory])
+    b = np.asarray([p for _, p, _ in eager.trajectory])
+    assert len(a) == len(b) == len(graph._traj_ts) > 16
+    np.testing.assert_allclose(a, b, atol=1e-3)
+
+
+def test_native_pack_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler that refuses the pack raises; nothing falls back."""
+    from mimosa_tpu_torch import native
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "GXX_FLAGS",
+                        native.GXX_FLAGS + ("-fno-such-flag",))
+    with pytest.raises(RuntimeError, match="could not build"):
+        native.pack_scan(np.zeros((4, 3)), np.zeros(4), None, None, 1, 4, 4,
+                         0.01, 1e-5, 0.1)
+
+
+def test_same_key_variant_is_captured(room):
+    """Two scans repeated 2 ms after the original attach to the newest
+    state (the same-key path); the second one replays its graph. The
+    trajectory equals the eager run's."""
+    scans = list(room["scans"][:12])
+    for k in (6, 9):
+        scans.insert(k + 1, dict(scans[k], ts_header=scans[k]["ts_header"]
+                                 + 2e-3))
+    data = dict(room, scans=scans)
+    eager, graph = _room_sequencer(True), _room_sequencer(False)
+    _feed(eager, data, range(len(scans)))
+    _feed(graph, data, range(len(scans)))
+    assert graph.counters == eager.counters
+    assert graph.counters["scans_same_key"] == 2
+    assert ("scan", False, False) in graph.graphs.graphs
+    a = np.asarray([p for _, p, _ in graph.trajectory])
+    b = np.asarray([p for _, p, _ in eager.trajectory])
+    np.testing.assert_allclose(a, b, atol=1e-4)

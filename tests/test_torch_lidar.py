@@ -139,6 +139,25 @@ def test_update_planes_matches_jax(maps):
                                np.asarray(jm.normal)[ok], atol=1e-4)
 
 
+@pytest.mark.parametrize("cols", [None, 3])
+def test_map_moment_sums_run_in_lane_order(cols):
+    """The map's moment sums add duplicate targets in lane order on the CPU
+    (x[i0] + v0 + v1 + ...), also past the lane counts where the CPU's
+    accumulating index_put, on more than one thread, leaves that order."""
+    rng = np.random.default_rng(3)
+    n, cap = 40000, 1000
+    shape = (n,) if cols is None else (n, cols)
+    x = rng.normal(size=(cap,) + shape[1:]).astype(np.float32)
+    v = rng.normal(size=shape).astype(np.float32)
+    idx = rng.integers(0, cap, size=n)
+    want = x.copy()
+    for i in range(n):
+        want[idx[i]] += v[i]
+    got = tvh._scatter_add(torch.from_numpy(x), torch.from_numpy(idx),
+                           torch.from_numpy(v))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_insert_saturated_cap_is_exact():
     """Many lanes hit one voxel in one insert: the in-batch rank cap keeps
     exactly max_points_per_voxel points, in lane order, in both."""

@@ -8,6 +8,8 @@
   within 5 mm of each other. The estimator is chaotic near tracking loss,
   so replays are compared by ATE, not pose by pose (the largest pose
   difference is printed, not gated);
+* both of these for each transfer codec (f32, int16 with its dither, the
+  int16 range image) and for the merged marginalization;
 * importing the port pulls in neither jax nor mimosa_tpu.
 """
 
@@ -59,15 +61,21 @@ def test_config_fields_and_defaults_match(pair):
     assert tseq.DBG_W == jseq.DBG_W
 
 
-def test_generate_matches_jax():
+@pytest.mark.parametrize("world,tc", [
+    ("room_world", dict()),
+    # the corridor_geo_proj row's trajectory
+    ("corridor_world", dict(amp=(4.0, 0.6, 0.3), center=(40.0, 2.0, 1.5),
+                            yaw_rate=0.15)),
+])
+def test_generate_matches_jax(world, tc):
     # t_total 3.5 crosses the smoothstep's end at t = 3.2, where an IMU
     # sample sits exactly on the clip bound
-    tc = dict(t_total=3.5)
+    tc = dict(t_total=3.5, **tc)
     lm = dict(n_rows=8, n_cols=128)
-    j = jsyn.generate(jsyn.room_world(), jsyn.TrajectoryConfig(**tc),
+    j = jsyn.generate(getattr(jsyn, world)(), jsyn.TrajectoryConfig(**tc),
                       jsyn.LidarModel(**lm), seed=3, imu_noise=0.01,
                       range_noise=0.01)
-    t = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(**tc),
+    t = tsyn.generate(getattr(tsyn, world)(), tsyn.TrajectoryConfig(**tc),
                       tsyn.LidarModel(**lm), seed=3, imu_noise=0.01,
                       range_noise=0.01)
     assert 3.2 in t["imu"]["ts"]
@@ -92,8 +100,16 @@ def test_generate_matches_jax():
 
 SEQ_KW = dict(max_scan_points=1024, n_geo_points=1024, n_map_points=2048,
               geo_leaf=0.4, map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
-              keyframe_rot_thresh=0.15, n_gn_iters=3,
-              quantize_transfer=False)
+              keyframe_rot_thresh=0.15, n_gn_iters=3)
+# the settings the replays run with: each transfer codec, and the int16
+# codec with the slide merged into the scan step
+CODECS = {
+    "f32": dict(quantize_transfer=False),
+    "int16": dict(),
+    "range": dict(range_transfer=True),
+    "int16_merged": dict(merge_marginalize=True),
+}
+LIDAR = dict(n_rows=8, n_cols=128)
 WIN_KW = dict(K=4)
 # 1 m voxels: at 8x128 rays a 0.4 m grid gets under one point per voxel
 # per scan, so the first scans track on ~10 inliers and both packages'
@@ -104,11 +120,18 @@ GEO_KW = dict(sigma=0.05, loc_count_thresh=50.0)
 N_CARRY = 4          # add_scan calls before the carried state: init + 3
 
 
-def _port_sequencer():
-    return tseq.Sequencer(tseq.SequencerConfig(**SEQ_KW),
+def _ray_dirs(codec):
+    if not CODECS[codec].get("range_transfer"):
+        return None
+    return tsyn.beam_dirs(tsyn.LidarModel(**LIDAR))[0]
+
+
+def _port_sequencer(codec="f32"):
+    return tseq.Sequencer(tseq.SequencerConfig(**SEQ_KW, **CODECS[codec]),
                           twin.WindowConfig(**WIN_KW),
                           tvh.VoxelMapConfig(**MAP_KW),
-                          tgeo.GeometricConfig(**GEO_KW), device="cpu")
+                          tgeo.GeometricConfig(**GEO_KW), device="cpu",
+                          ray_dirs=_ray_dirs(codec))
 
 
 def _jax_state(s):
@@ -123,16 +146,19 @@ def _jax_state(s):
     return st
 
 
-@pytest.fixture(scope="module")
-def jax_replay():
-    """The short room replay through the JAX package, with its state
-    snapshot before and after the (N_CARRY+1)-th scan."""
+@pytest.fixture(scope="module", params=sorted(CODECS))
+def jax_replay(request):
+    """The short room replay through the JAX package with one of
+    ``CODECS``, with its state snapshot before and after the
+    (N_CARRY+1)-th scan."""
+    codec = request.param
     data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
-        t_total=3.0), tsyn.LidarModel(n_rows=8, n_cols=128), seed=0)
-    s = jseq.Sequencer(jseq.SequencerConfig(**SEQ_KW),
+        t_total=3.0), tsyn.LidarModel(**LIDAR), seed=0)
+    s = jseq.Sequencer(jseq.SequencerConfig(**SEQ_KW, **CODECS[codec]),
                        jwin.WindowConfig(**WIN_KW),
                        jvh.VoxelMapConfig(**MAP_KW),
-                       jgeo.GeometricConfig(**GEO_KW), dtype=jnp.float32)
+                       jgeo.GeometricConfig(**GEO_KW), dtype=jnp.float32,
+                       ray_dirs=_ray_dirs(codec))
     imu_i = 0
     snaps = {}
     for k in range(len(data["scans"])):
@@ -141,8 +167,8 @@ def jax_replay():
         imu_i = trep.feed(s, data, k, imu_i)
         if k == N_CARRY:
             snaps["after"] = _jax_state(s)
-    return dict(data=data, snaps=snaps, trajectory=s.trajectory,
-                counters=dict(s.counters))
+    return dict(codec=codec, data=data, snaps=snaps,
+                trajectory=s.trajectory, counters=dict(s.counters))
 
 
 def _close(out, ref, rtol, floor):
@@ -157,7 +183,8 @@ def test_carried_state_scan_step_matches_jax(jax_replay):
     data = jax_replay["data"]
     before, imu_i = jax_replay["snaps"]["before"]
     ref = jax_replay["snaps"]["after"]
-    s = convert.load_sequencer_state(_port_sequencer(), before)
+    s = convert.load_sequencer_state(_port_sequencer(jax_replay["codec"]),
+                                     before)
     assert s.n_active == WIN_KW["K"]
     trep.feed(s, data, N_CARRY, imu_i)
     out = convert.sequencer_state(s)
@@ -201,7 +228,7 @@ def test_carried_state_scan_step_matches_jax(jax_replay):
 
 def test_short_replay_ate_matches_jax(jax_replay):
     data = jax_replay["data"]
-    s = _port_sequencer()
+    s = _port_sequencer(jax_replay["codec"])
     trep.replay(s, data)
     assert s.counters == jax_replay["counters"]
     ate_t = trep.trajectory_ate(s, data)
@@ -211,7 +238,8 @@ def test_short_replay_ate_matches_jax(jax_replay):
                           data["gt"]["ts"], data["gt"]["pos"])
     pt = np.asarray([p for _, p, _ in s.trajectory])
     pj = np.asarray([p for _, p, _ in jt])
-    print(f"short replay ATE: port {ate_t:.5f} m, JAX {ate_j:.5f} m; "
+    print(f"short replay, {jax_replay['codec']}: ATE port {ate_t:.5f} m, "
+          f"JAX {ate_j:.5f} m; "
           f"largest pose difference {np.abs(pt - pj).max():.2e} m")
     assert ate_t < 0.10 and ate_j < 0.10
     assert abs(ate_t - ate_j) < 0.005
@@ -235,11 +263,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_sequencer_refuses_unported_settings():
-    for kw in (dict(), dict(quantize_transfer=False, rescue_enabled=True),
-               dict(quantize_transfer=False, range_transfer=True)):
+    """Rescue, rematch and the frozen map are not ported; the default
+    configuration is the JAX package's (the int16 codec with its dither),
+    and the range codec needs its beam table."""
+    for kw in (dict(rescue_enabled=True), dict(rematch_on_motion=True),
+               dict(freeze_map=True)):
         with pytest.raises(NotImplementedError):
             tseq.Sequencer(tseq.SequencerConfig(**kw), device="cpu")
-    assert tseq.Sequencer(device="cpu").cfg.quantize_transfer is False
+    with pytest.raises(ValueError, match="ray_dirs"):
+        tseq.Sequencer(tseq.SequencerConfig(range_transfer=True),
+                       device="cpu")
+    s = tseq.Sequencer(device="cpu")
+    assert s.cfg == tseq.SequencerConfig()
+    assert s.cfg.quantize_transfer and s.cfg.quant_dither
+    assert s._dither_dev.shape == (s.cfg.max_scan_points, 3)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
