@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --stage-split   # only the per-stage split (6.)
+    python3 chip_smoke.py --stage-split   # only the per-stage split (7.)
 
-Drives the port (``mimosa_tpu_torch``) through its main path on the card
+Drives the port (``mimosa_tpu_torch``) through its main paths on the card
 and prints one line per phase; any failure raises, so the exit code is
 non-zero. It needs a CUDA device, ``nvcc`` and ``g++``; it imports nothing
 of JAX or of the JAX package.
@@ -35,20 +35,35 @@ of JAX or of the JAX package.
    p90) and the device's busy and idle share (profiler over the last
    scans); then the
    largest position gap between the two trajectories (< 0.01 m);
-5. scoreboard: the geometric rows of the JAX package's synthetic
-   scoreboard through ``mimosa_tpu_torch.io.synthetic_replay.run`` on the
-   card, with the settings and gates of ``scripts/dataset_evaluation.py``:
-   room_clean (int16 codec, < 0.010 m), room_noisy, room_range_codec,
-   fast_spin (< 0.08 m) and corridor_geo_proj (< 3.0 m);
-6. with ``--stage-split`` and nothing else: the entry-width replay run
+5. photo: the geometric + photometric (PG-LIO) Sequencer at Ouster OS-1-64
+   widths (a 64x1024 LiDAR, 65,536 points a scan shipped with intensity,
+   every 4th lane to geometry, 8192 ICP points, 2^19 voxels, K=8, a
+   64-feature store) on bench.py's 30 x 16 x 6 m room, 4 s with IMU and
+   range noise 0.01, captured (this slice's main path) and eager in one
+   process: the checks and numbers of 4. (ATE < 0.08 m) plus the
+   photometric factor tracking features on every step after the second
+   (debug slot 12: median and minimum), and, from the eager run's last
+   scans, the device time and device ops a scan of the photometric stages
+   (frame build, the 4 linearizations, lifecycle + detection) in profiler
+   ranges;
+6. scoreboard: the geometric and photometric rows of the JAX package's
+   synthetic scoreboard through
+   ``mimosa_tpu_torch.io.synthetic_replay.run`` on the card, with the
+   settings and gates of ``scripts/dataset_evaluation.py``: room_clean
+   (int16 codec, < 0.010 m), room_noisy, room_range_codec, fast_spin,
+   room_photometric (< 0.08 m), corridor_geo_proj (< 3.0 m) and
+   corridor_pglio (< 0.80 m);
+7. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
    the scan step, printing host ms a scan step by stage (no JSON lines).
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
-of the kernel (launches on the main path, error, times and bound).
+of the kernel (launches on the entry-width path and on the photometric
+path, error, times and bound).
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -71,6 +86,7 @@ F32_FLOP_S = 67e12
 FLOPS_POINT = 182
 FLOPS_INLIER = 30
 ENTRY_ATE_GATE = 0.08                      # room_noisy's gate
+PHOTO_ATE_GATE = 0.08                      # room_photometric's gate
 # captured against eager at entry widths: the same kernels on the same
 # inputs, so the capture must not move the estimate; 1 cm is the room_clean
 # gate, and a last-bit difference grows to ~0.2 mm over a short replay (the
@@ -93,7 +109,20 @@ SCOREBOARD = (
                                tc=dict(t_total=8.0, amp=(4.0, 0.6, 0.3),
                                        center=(40.0, 2.0, 1.5),
                                        yaw_rate=0.15), **CORRIDOR), 3.0),
+    # the photometric rows (scripts/dataset_evaluation.py:282-294)
+    ("room_photometric", dict(use_photometric=True, **NOISY), 0.080),
+    ("corridor_pglio", dict(use_photometric=True, project_on_degeneracy=True,
+                            project_degenerate=True, world="corridor",
+                            tc=dict(t_total=8.0, amp=(4.0, 0.6, 0.3),
+                                    center=(40.0, 2.0, 1.5), yaw_rate=0.15),
+                            **CORRIDOR), 0.80),
 )
+# the photometric slice's stages, timed by torch.profiler ranges in its
+# eager run: (photometric function, range name)
+PHOTO_STAGES = (("make_frame", "photo frame build"),
+                ("linearize", "photo linearize"),
+                ("update_lifecycle", "photo lifecycle + detect"),
+                ("detect_features", "photo lifecycle + detect"))
 
 
 def check(cond, what):
@@ -333,10 +362,12 @@ def replay_timed(s, data, ks, imu_i=0):
 
 def device_busy_ms(prof):
     """Union of the device intervals (kernels, copies) a profile recorded,
-    in ms, and their number."""
+    in ms, and their number (the device-side spans of profiler ranges are
+    not device work and do not count)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     busy, end = 0, None
     for a, b in spans:
         if end is None or a > end:
@@ -376,20 +407,66 @@ def entry_replay(**kw):
 def entry_run(eager):
     """One entry-width replay, captured or eager: its numbers, with the ICP
     launches counted from 0 over the replay."""
+    s, data = entry_replay(eager=eager)
+    check((s.graphs is None) == eager, "the Sequencer's capture setting")
+    return slice_run("slice", "entry widths", s, data, ENTRY_ATE_GATE)
+
+
+def range_device(prof, name):
+    """(device ms, device ops, calls) of the profiler range ``name``: the
+    kernels and copies launched inside it, nested ops included."""
+    def ops(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in ops(c)]
+
+    calls = [e for e in prof.events() if e.name == name
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    ks = [k for e in calls for k in ops(e)]
+    return sum(k.duration for k in ks) / 1e3, len(ks), len(calls)
+
+
+@contextlib.contextmanager
+def photo_ranges():
+    """The photometric stages of the scan step inside ``torch.profiler``
+    ranges (``PHOTO_STAGES``); only an eager step runs them."""
+    from torch.profiler import record_function
+
+    from mimosa_tpu_torch.lidar import photometric as ph
+
+    def ranged(name, fn):
+        def wrapper(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapper
+
+    saved = [(f, getattr(ph, f)) for f, _ in PHOTO_STAGES]
+    for f, name in PHOTO_STAGES:
+        setattr(ph, f, ranged(name, getattr(ph, f)))
+    try:
+        yield
+    finally:
+        for f, fn in saved:
+            setattr(ph, f, fn)
+
+
+def slice_run(tag, label, s, data, ate_gate, stage_ranges=False):
+    """Replay ``data`` through Sequencer ``s``, captured or eager as it was
+    made: its numbers, with the ICP launches counted from 0 over the
+    replay; the last scans run under the profiler (with the photometric
+    stages in ranges where ``stage_ranges``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
     from mimosa_tpu_torch.ops import icp_cuda
 
-    s, data = entry_replay(eager=eager)
-    check((s.graphs is None) == eager, "the Sequencer's capture setting")
+    eager = s.graphs is None
     n_scans = len(data["scans"])
     n_prof = 3                # the last scans run under the profiler
     torch.cuda.reset_peak_memory_stats()
     icp_cuda.LAUNCHES = 0
     ms, imu_i = replay_timed(s, data, range(n_scans - n_prof))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with (photo_ranges() if stage_ranges else contextlib.nullcontext()), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         ms_prof, _ = replay_timed(s, data, range(n_scans - n_prof, n_scans),
                                   imu_i)
     launches = icp_cuda.LAUNCHES
@@ -411,8 +488,7 @@ def entry_run(eager):
     traj = np.asarray([p for _, p, _ in s.trajectory])
     check(np.isfinite(traj).all(), f"{name}: non-finite poses")
     ate = trajectory_ate(s, data)
-    check(ate < ENTRY_ATE_GATE, f"{name}: entry-width ATE {ate:.4f} m >= "
-          f"{ENTRY_ATE_GATE}")
+    check(ate < ate_gate, f"{name}: {label} ATE {ate:.4f} m >= {ate_gate}")
     steady = ms[5:]           # after the first 5 scans (init included)
     busy, n_dev = device_busy_ms(prof)
     check(n_dev > 0, f"{name}: the profiler saw no device work")
@@ -424,39 +500,136 @@ def entry_run(eager):
                mem=torch.cuda.max_memory_allocated() / 2**20,
                captures=None if eager else s.graphs.captures)
     out["idle"] = 100 * (1 - out["busy"] / out["med"])
-    print(f"[slice] {name}, entry widths: {steps} scan steps + init, ICP "
+    print(f"[{tag}] {name}, {label}: {steps} scan steps + init, ICP "
           f"kernel launches {launches} (= {s.cfg.n_gn_iters + 1} x {steps}), "
-          f"ATE {ate:.5f} m (gate {ENTRY_ATE_GATE}), ms/scan steady median "
+          f"ATE {ate:.5f} m (gate {ate_gate}), ms/scan steady median "
           f"{out['med']:.2f} p90 {out['p90']:.2f} over {len(steady)} scans "
           f"(steps 1-4: {', '.join(f'{m:.1f}' for m in out['first'])}); "
           f"peak device memory {out['mem']:.0f} MiB"
           + ("" if eager else f"; {out['captures']} graphs captured"),
           flush=True)
-    print(f"[slice] {name}, profiled last {n_prof} scans: {ran} ICP kernels "
+    print(f"[{tag}] {name}, profiled last {n_prof} scans: {ran} ICP kernels "
           f"ran on the card (= {s.cfg.n_gn_iters + 1} x {n_prof}), "
           f"{out['n_dev']:.0f} device ops and {out['busy']:.2f} ms device "
           f"busy per scan, host {out['prof_ms']:.2f} ms/scan under the "
           f"profiler; device idle {out['idle']:.1f}% of the unprofiled "
           f"median scan", flush=True)
+    if s.photo_cfg is not None:
+        # the photometric factor tracks features on every step after the
+        # second (the first detects, the second tracks what it found)
+        tracked = s.debug_records()[2:, 12]
+        check((tracked > 0).all(), f"{name}: the photometric factor tracked "
+              f"no feature on a steady step: {tracked.tolist()}")
+        out["tracked"] = tracked
+        print(f"[{tag}] {name}: photometric features tracked a step (debug "
+              f"slot 12, steps 3-{steps}): median "
+              f"{statistics.median(tracked):.0f}, min {tracked.min():.0f} "
+              f"of {s.photo_cfg.num_features}", flush=True)
+    if stage_ranges:
+        out["stages"] = {}
+        for rname in dict.fromkeys(n for _, n in PHOTO_STAGES):
+            dev_ms, n_ops, calls = range_device(prof, rname)
+            check(calls > 0 and n_ops > 0, f"no device work in {rname}")
+            out["stages"][rname] = (dev_ms / n_prof, n_ops / n_prof,
+                                    calls / n_prof)
+        print(f"[{tag}] {name}, photometric stages a scan (profiler ranges "
+              f"over the last {n_prof} scans): " + ", ".join(
+                  f"{k} {v[0]:.3f} ms device in {v[1]:.0f} device ops "
+                  f"({v[2]:.0f} calls)" for k, v in out["stages"].items()),
+              flush=True)
     return out
 
 
-def slice_phase():
-    """The entry-width replay captured (the main path) and then eager, in
-    one process. Returns the captured run's ICP launches and the ICP
-    kernels the profiler saw run in its last scans."""
-    cap = entry_run(eager=False)
-    eag = entry_run(eager=True)
+def captured_vs_eager(tag, cap, eag):
+    """Hold a captured run against the eager run of the same replay: the
+    largest position gap under CAPTURE_GAP. Returns the captured run's ICP
+    launches and the ICP kernels the profiler saw run in its last scans."""
     check(cap["traj"].shape == eag["traj"].shape, "trajectory lengths differ")
     gap = float(np.abs(cap["traj"] - eag["traj"]).max())
-    check(gap < CAPTURE_GAP, f"captured and eager positions differ by "
-          f"{gap:.4f} m")
-    print(f"[slice] captured vs eager: ms/scan median {cap['med']:.2f} vs "
+    check(gap < CAPTURE_GAP, f"{tag}: captured and eager positions differ "
+          f"by {gap:.4f} m")
+    print(f"[{tag}] captured vs eager: ms/scan median {cap['med']:.2f} vs "
           f"{eag['med']:.2f} ({eag['med'] / cap['med']:.1f}x), device idle "
           f"{cap['idle']:.1f}% vs {eag['idle']:.1f}%, ATE {cap['ate']:.5f} vs "
           f"{eag['ate']:.5f} m, largest position gap {gap:.2e} m (gate "
           f"{CAPTURE_GAP})", flush=True)
     return cap["launches"], cap["ran"]
+
+
+def slice_phase():
+    """The entry-width replay captured (the main path) and then eager, in
+    one process (:func:`captured_vs_eager`)."""
+    return captured_vs_eager("slice", entry_run(eager=False),
+                             entry_run(eager=True))
+
+
+def photo_data():
+    """The photometric slice's sequence: bench.py's room (30 x 16 x 6 m) and
+    trajectory, 4 s, IMU and range noise 0.01, from an Ouster OS-1-64
+    sized LiDAR (64 x 1024, 65,536 points a scan)."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    return syn.generate(
+        syn.room_world(lx=30.0, ly=16.0, lz=6.0),
+        syn.TrajectoryConfig(t_total=4.0, amp=(6.0, 3.0, 0.8),
+                             center=(12.0, 8.0, 2.0)),
+        syn.LidarModel(n_rows=64, n_cols=1024), seed=0, imu_noise=0.01,
+        range_noise=0.01)
+
+
+def photo_sequencer(eager):
+    """The geometric + photometric Sequencer with bench.py's photometric
+    settings (bench.py:79-83, 109-148): the full cloud shipped (int16 codec
+    with the intensity column, point_skip 1) and every 4th lane to
+    geometry, 8192 ICP points, 2^19 voxels, K=8, and the photometric
+    configuration at the LiDAR's 64 x 1024 image with the FIR line removal
+    and brightness flattening on."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.lidar import photometric as ph
+    from mimosa_tpu_torch.mapping import voxel_hash as vh
+
+    lm = syn.LidarModel(n_rows=64, n_cols=1024)
+    s = seq.Sequencer(
+        seq.SequencerConfig(max_scan_points=lm.n_rows * lm.n_cols,
+                            point_skip=1, geo_skip=4, n_geo_points=8192,
+                            n_map_points=16384, geo_leaf=0.5,
+                            map_insert_leaf=0.2, keyframe_trans_thresh=0.3,
+                            keyframe_rot_thresh=0.15, n_gn_iters=3,
+                            max_trajectory=1024),
+        win.WindowConfig(K=8),
+        vh.VoxelMapConfig(leaf_size=0.5, capacity_log2=19,
+                          plane_min_points=5, lru_horizon=0),
+        geo.GeometricConfig(),
+        ph.PhotometricConfig(rows=lm.n_rows, cols=lm.n_cols,
+                             fov_up=lm.fov_up, fov_down=lm.fov_down,
+                             range_min=0.5, range_max=60.0,
+                             gradient_threshold=2.0, nma_radius=5,
+                             num_features=64, margin=3, intensity_scale=1.0),
+        eager=eager)
+    check(s.device.type == "cuda", f"the Sequencer chose {s.device}")
+    check((s.graphs is None) == eager, "the Sequencer's capture setting")
+    return s
+
+
+def photo_phase():
+    """The geometric + photometric slice at 64 x 1024 captured (the main
+    path) and then eager in one process (:func:`captured_vs_eager`), the
+    eager run's last scans with the photometric stages in profiler
+    ranges."""
+    t0 = time.perf_counter()
+    data = photo_data()
+    print(f"[photo] {len(data['scans'])} scans of "
+          f"{len(data['scans'][0]['points'])} points generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    label = "64x1024 photometric"
+    cap = slice_run("photo", label, photo_sequencer(False), data,
+                    PHOTO_ATE_GATE)
+    eag = slice_run("photo", label, photo_sequencer(True), data,
+                    PHOTO_ATE_GATE, stage_ranges=True)
+    return captured_vs_eager("photo", cap, eag)
 
 
 # stages of the scan step timed by --stage-split: (module, function, name)
@@ -580,6 +753,7 @@ def main():
         return 0
     timings = kernel_phase(dev)
     launches, ran = slice_phase()
+    photo_launches, photo_ran = photo_phase()
     scoreboard_phase()
 
     at = timings[8192]
@@ -591,7 +765,8 @@ def main():
                bound_ms=at["bound_ms"], bound_by=at["bound_by"],
                library_ms=None, bound_us=1e3 * at["bound_ms"],
                device_us=1e3 * at["device_ms"], host_ms=at["host_ms"],
-               profiled_runs=ran)
+               profiled_runs=ran, launches_photometric=photo_launches,
+               profiled_runs_photometric=photo_ran)
     print(json.dumps({"kernels": [rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

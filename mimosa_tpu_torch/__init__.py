@@ -1,14 +1,15 @@
 """mimosa_tpu_torch — the PyTorch/CUDA port of ``mimosa_tpu``.
 
-The streaming geometric LiDAR-inertial scan step (decode -> deskew ->
-downsample -> predict/append -> Gauss-Newton with live point-to-plane ICP
--> prior absorption -> keyframe map update), written as plain functions on
-torch tensors and, on the card, captured as CUDA graphs
-(``graph/captured.py``). The ICP linearization, the one kernel the JAX
-package wrote in Pallas (``mimosa_tpu/ops/icp_pallas.py``), is a
-hand-written CUDA kernel for Hopper here (``ops/icp_cuda.py``,
-``csrc/icp_linearize.cu``); the host scan pack of the int16 transfer
-codecs is the JAX package's C++ (``native/``). The entry points run on the
+The streaming LiDAR-inertial scan step (decode -> deskew -> downsample ->
+predict/append -> Gauss-Newton with live point-to-plane ICP and,
+optionally, the photometric patch factor of PG-LIO -> prior absorption ->
+keyframe map update), written as plain functions on torch tensors and, on
+the card, captured as CUDA graphs (``graph/captured.py``). The ICP
+linearization, the one kernel the JAX package wrote in Pallas
+(``mimosa_tpu/ops/icp_pallas.py``), is a hand-written CUDA kernel for
+Hopper here (``ops/icp_cuda.py``, ``csrc/icp_linearize.cu``); the host
+scan pack of the int16 transfer codecs is the JAX package's C++
+(``native/``). The entry points run on the
 first CUDA device (:func:`require_cuda`) unless the caller asks for the
 CPU with ``device="cpu"``.
 
@@ -26,6 +27,11 @@ import torch as _torch
 # the counterpart of the JAX package's "highest" matmul precision pin.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# The photometric image chain's convolutions: cuDNN picks one fixed,
+# deterministic algorithm (no autotuning), so a replay repeats bit for bit
+# and a captured step runs the algorithm its eager warm-up ran.
+_torch.backends.cudnn.deterministic = True
+_torch.backends.cudnn.benchmark = False
 
 
 def require_cuda() -> _torch.device:

@@ -12,6 +12,9 @@ nor ``mimosa_tpu``:
              "traj_q": ..., "traj_p": ..., "debug_rec": ...,
              "host": {...}, "imu": {"ts": ..., "acc": ..., "gyro": ...}}
 
+plus ``"features": {...}`` (the photometric feature store, a
+``lidar.photometric.Features`` by field) for a photometric Sequencer.
+
 ``load_sequencer_state`` starts a port Sequencer from such a state and
 ``sequencer_state`` reads one back, so a test can run both packages from
 the same window and map and compare them field by field.
@@ -26,6 +29,7 @@ import torch
 
 from mimosa_tpu_torch.graph.window import Window
 from mimosa_tpu_torch.imu.preintegration import PreintState
+from mimosa_tpu_torch.lidar.photometric import Features
 from mimosa_tpu_torch.mapping.voxel_hash import VoxelMap
 
 # device-resident sequencer fields besides the three state tuples
@@ -70,14 +74,23 @@ def sequencer_state(seq) -> dict:
     state["host"] = {k: copy.deepcopy(getattr(seq, k)) for k in SEQ_HOST}
     state["imu"] = dict(ts=seq.imu.ts.copy(), acc=seq.imu.acc.copy(),
                         gyro=seq.imu.gyro.copy())
+    if seq.features is not None:
+        state["features"] = to_numpy(seq.features)
     return state
 
 
 def load_sequencer_state(seq, state: dict):
     """Replace a port Sequencer's state with ``state`` (see module doc);
-    shapes must match the Sequencer's configuration."""
+    shapes must match the Sequencer's configuration. A photometric
+    Sequencer needs the state's ``"features"``."""
     dev, dt = seq.device, seq.dtype
-    for name, cls in _TUPLES:
+    tuples = _TUPLES
+    if seq.features is not None:
+        if "features" not in state:
+            raise KeyError("a photometric Sequencer needs the state's "
+                           "'features'")
+        tuples = _TUPLES + (("features", Features),)
+    for name, cls in tuples:
         new = tuple_from_numpy(cls, state[name], dev, dt)
         for k, old in zip(cls._fields, getattr(seq, name)):
             if tuple(getattr(new, k).shape) != tuple(old.shape):

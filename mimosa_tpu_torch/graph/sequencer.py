@@ -1,6 +1,6 @@
-"""Deterministic measurement sequencer — the geometric LiDAR-inertial slice.
+"""Deterministic measurement sequencer — the LiDAR-inertial slice.
 
-Port of the streaming geometric path of ``mimosa_tpu/graph/sequencer.py``:
+Port of the streaming LiDAR path of ``mimosa_tpu/graph/sequencer.py``:
 a host event loop (IMU buffering, initialization, same-key collapse,
 window sliding) feeding device step functions on torch tensors:
 
@@ -10,7 +10,10 @@ window sliding) feeding device step functions on torch tensors:
   ``ops/icp_cuda.py`` on the card) -> absorb the scan into the prior ->
   keyframe test, map insert, eviction and plane refit -> trajectory and
   debug rows; with ``merge_marginalize`` the window slide runs first in the
-  same step;
+  same step. With ``photo_cfg`` (PG-LIO, ``lidar/photometric.py``) the
+  scan also builds an intensity frame, the photometric patch factor joins
+  every GN iteration and the absorb, and the feature store is tracked and
+  topped up at the converged pose;
 * ``_marginalize``: Schur-complement slide of the window;
 * ``_init_lidar_step``: state setup + first-scan map seed.
 
@@ -27,8 +30,8 @@ card each step variant is captured once as a CUDA graph and replayed
 (``graph/captured.py``); ``eager=True`` runs it op by op instead.
 
 Not ported yet (the constructor refuses these settings): rescue, rematch
-and frozen-map localization. Nor are the photometric factor, radar,
-odometry, out-of-order scan insertion and the bulk scheduler.
+and frozen-map localization. Nor are radar, odometry, out-of-order scan
+insertion and the bulk scheduler.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from mimosa_tpu_torch.imu import preintegration as pre
 from mimosa_tpu_torch.imu.buffer import ImuBuffer, estimate_attitude
 from mimosa_tpu_torch.lidar import deskew as dk
 from mimosa_tpu_torch.lidar import geometric as geo
+from mimosa_tpu_torch.lidar import photometric as ph
 from mimosa_tpu_torch.lidar.downsample import voxel_downsample
 from mimosa_tpu_torch.mapping import voxel_hash as vh
 from mimosa_tpu_torch.ops import icp_cuda
@@ -62,10 +66,15 @@ logger = logging.getLogger("mimosa_tpu_torch.sequencer")
 # the 9 IMU-factor localizability eigenvalues (rot, pos, vel ascending)
 DBG_W = 17 + 21 + 9
 _TRIU6 = np.triu_indices(6)
+# photometric status counts logged into debug slots 13-15 (OOB,
+# MASKED + OCCLUDED, NCC)
+PH_SUM_SLOTS = (1, 3, 4, 5)
 
-# the Sequencer's device state, in the order the step functions return it
+# the Sequencer's device state, in the order the step functions return it;
+# a photometric Sequencer carries its feature store last
 STATE = ("window", "vmap", "preints", "fv", "kf_q", "kf_p", "kf_count",
          "traj_q", "traj_p", "debug_rec")
+PHOTO_STATE = STATE + ("features",)
 
 
 class EstimatorState(typing.NamedTuple):
@@ -163,11 +172,11 @@ _PORTED_ONLY = dict(rematch_on_motion=False, rescue_enabled=False,
                     freeze_map=False)
 
 
-def _scan_ncol(cfg):
-    """Packed-scan column count: range mode ships (r, t), the xyz modes
-    (x, y, z, t); the port has no photometric factor, so no intensity
-    column travels."""
-    return 2 if cfg.range_transfer else 4
+def _scan_ncol(cfg, photo=False):
+    """Packed-scan column count: range mode ships (r, t[, i]), the xyz
+    modes (x, y, z, t[, i]); the intensity column travels only for a
+    photometric Sequencer (``photo``)."""
+    return (2 if cfg.range_transfer else 4) + int(photo)
 
 
 def _t_col(cfg):
@@ -285,7 +294,8 @@ def _dither_lanes(n, dtype, device=None):
 
 def _decode_scan(scan_f, pt_valid, t_offset, seq_cfg, d, ray_dirs=None,
                  dither=None):
-    """Unpack a staged scan into (points [N,3], times [N], valid [N]).
+    """Unpack a staged scan into (points [N,3], times [N], intensity [N],
+    valid [N]).
 
     int16 codecs: ``(x + 32767) * res`` in the JAX package's operation
     order, the per-lane dither (``dither``, the resident
@@ -294,10 +304,17 @@ def _decode_scan(scan_f, pt_valid, t_offset, seq_cfg, d, ray_dirs=None,
     range codec rebuilds xyz = range * dir (+ offset for the affine [N,6]
     table) from the resident ``ray_dirs``. The f32 codec ships (x, y, z,
     t) and its own mask. Point times shift from scan-header-relative to the
-    IMU-segment base by ``t_offset``."""
+    IMU-segment base by ``t_offset``. The intensity column follows the
+    time column when the pack has one (at ``quant_int_res`` in the int16
+    codecs); without it the intensity is zero."""
     tc = _t_col(seq_cfg)
+    has_inten = scan_f.shape[1] > tc + 1
     if not seq_cfg.quantize_transfer:
-        return scan_f[:, :3], scan_f[:, tc] + t_offset, pt_valid
+        inten = scan_f[:, tc + 1] if has_inten \
+            else torch.zeros_like(scan_f[:, 0])
+        return scan_f[:, :3], scan_f[:, tc] + t_offset, inten, pt_valid
+    inten = scan_f[:, tc + 1].to(d) * seq_cfg.quant_int_res if has_inten \
+        else torch.zeros(scan_f.shape[0], dtype=d, device=scan_f.device)
     if seq_cfg.range_transfer:
         rq = scan_f[:, 0].to(d) + 32767.0
         if seq_cfg.quant_dither:
@@ -312,13 +329,13 @@ def _decode_scan(scan_f, pt_valid, t_offset, seq_cfg, d, ray_dirs=None,
             q = q - dither
         pts = q * seq_cfg.quant_pos_res
     t_pts = (scan_f[:, tc].to(d) + 32767.0) * seq_cfg.quant_t_res + t_offset
-    return pts, t_pts, scan_f[:, tc] != -32768
+    return pts, t_pts, inten, scan_f[:, tc] != -32768
 
 
 def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
                kf_q, kf_p, kf_count, traj_q, traj_p, debug_rec, q_bl, t_bl,
-               ray_dirs=None, dither=None,
-               *, seq_cfg, win_cfg, map_cfg, geo_cfg,
+               ray_dirs=None, dither=None, static_mask=None, features=None,
+               *, seq_cfg, win_cfg, map_cfg, geo_cfg, photo_cfg=None,
                marginalize_first=False, append=True):
     """The per-scan pipeline. ``imu_f`` [M+1, 8]: M IMU rows (acc3, gyro3,
     dt, valid) and a last row of scalars [n_active (count BEFORE the
@@ -331,7 +348,14 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     ``append=False`` is the same-key path: fewer than
     ``min_imu_between_states`` IMU samples separate the scan end from the
     newest state, so the scan's factors act on that state instead of a new
-    one."""
+    one.
+
+    With ``photo_cfg`` the intensity-patch factor joins the GN system (on
+    the body pose tangent, projected onto the geometric-degenerate
+    directions with ``project_on_degeneracy``) and ``features`` is tracked
+    and topped up at the converged pose; the step then also returns the new
+    feature store. ``static_mask`` is the resident [R,C] static mask or
+    None."""
     d = window.p.dtype
     scalars = imu_f[-1]
     imu_f = imu_f[:-1]
@@ -344,8 +368,8 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
         window, preints, fv = _marginalize(window, preints, fv,
                                            win_cfg=win_cfg)
 
-    pts, t_pts, pt_valid = _decode_scan(scan_f, pt_valid, scalars[4],
-                                        seq_cfg, d, ray_dirs, dither)
+    pts, t_pts, intensity, pt_valid = _decode_scan(
+        scan_f, pt_valid, scalars[4], seq_cfg, d, ray_dirs, dither)
     accs, gyros, dts = imu_f[:, 0:3], imu_f[:, 3:6], imu_f[:, 6]
     seg_valid = imu_f[:, 7] > 0.5
     imu_ts = torch.cat([torch.zeros_like(dts[:1]), torch.cumsum(dts, 0)[:-1]])
@@ -382,6 +406,30 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     pts_geo, geo_valid, _ = voxel_downsample(
         pts_b, geo_in, seq_cfg.geo_leaf, seq_cfg.n_geo_points)
 
+    # 4b) photometric frame (once a scan, from the full deskewed cloud)
+    if photo_cfg is not None:
+        kw = {}
+        if photo_cfg.exact_ouster:
+            # the raw points (sensor pixel-id order, point_skip == 1) for
+            # the yaw table and the per-point T_Le_Lt for the re-skew
+            kw = dict(points_raw=pts, q_le_lt=dsk.q_le_lt,
+                      t_le_lt=dsk.t_le_lt)
+        frame = ph.make_frame(dsk.points_le, intensity, pt_valid, photo_cfg,
+                              static_mask=static_mask, **kw)
+        A_bl = lie.pose_tangent_adjoint(q_bl, t_bl)   # body -> lidar tangent
+
+    def photo_block(icp_):
+        """Photometric H/b on the body pose tangent at the current pose."""
+        q_wl, t_wl = lie.se3_compose(*pose(), q_bl, t_bl)
+        pr = ph.linearize(frame, features, q_wl, t_wl, photo_cfg)
+        Hb = A_bl.T @ pr.H @ A_bl
+        bb = A_bl.T @ pr.b
+        if photo_cfg.project_on_degeneracy:
+            proj = geo.degenerate_selector(icp_)
+            Hb = proj @ Hb @ proj.T
+            bb = proj @ bb
+        return Hb, bb, pr
+
     def geo_meas(icp_):
         """ICP measurement block, optionally projected onto the
         non-degenerate eigen-subspace."""
@@ -405,8 +453,11 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     pidx = win.pose_idx(slot)
     for _ in range(seq_cfg.n_gn_iters):
         icp = lin_iter()
-        H, rhs = win.build_system(window, preints, fv, win_cfg,
-                                  meas=[(pidx, *geo_meas(icp))],
+        meas = [(pidx, *geo_meas(icp))]
+        if photo_cfg is not None:
+            Hb, bb, _ = photo_block(icp)
+            meas.append((pidx, Hb, bb))
+        H, rhs = win.build_system(window, preints, fv, win_cfg, meas=meas,
                                   imu_cache=imu_cache)
         window = win.apply_update(window, win.solve(H, rhs), win_cfg)
 
@@ -417,6 +468,26 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     window = win.rebase_prior(window, win_cfg)
     gH, gb = geo_meas(icp)
     window = win.add_measurement_block(window, pidx, gH, gb, win_cfg)
+    Hpose = gH
+    ph_rec = torch.zeros(4, dtype=d, device=gH.device)
+    if photo_cfg is not None:
+        Hb, bb, pr = photo_block(icp)
+        window = win.add_measurement_block(window, pidx, Hb, bb, win_cfg)
+        Hpose = gH + Hb
+        # feature lifecycle, then the top-up at the converged pose, steered
+        # along the geometric-degenerate translation directions
+        features = ph.update_lifecycle(features, pr.tracked, photo_cfg)
+        q_wl, t_wl = lie.se3_compose(*pose(), q_bl, t_bl)
+        dirs_b = icp.eigvecs_trans.T          # rows = body-frame directions
+        dirs_l = lie.quat_rotate(lie.quat_conj(q_bl).expand(3, 4), dirs_b)
+        features = ph.detect_features(frame, features, q_wl, t_wl, photo_cfg,
+                                      degen_dirs=(dirs_l,
+                                                  icp.degenerate_trans))
+        sc = pr.status_counts
+        ph_rec = torch.stack([
+            pr.num_tracked, sc[PH_SUM_SLOTS[0]],
+            sc[PH_SUM_SLOTS[1]] + sc[PH_SUM_SLOTS[2]],
+            sc[PH_SUM_SLOTS[3]]]).to(d)
 
     # 7) keyframe decision + map update + trajectory / debug logging
     q_new, p_new = pose()
@@ -439,12 +510,13 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     rec = torch.cat([
         icp.num_inlier.to(d).reshape(1), icp.status_counts.to(d),
         icp.mean_abs_res.reshape(1), icp.degenerate_rot.to(d),
-        icp.degenerate_trans.to(d),
-        torch.zeros(5, dtype=d, device=gH.device),   # photometric + rescue
-        gH[iu[0], iu[1]], loc_eig])
+        icp.degenerate_trans.to(d), ph_rec,
+        torch.zeros(1, dtype=d, device=gH.device),   # rescue
+        Hpose[iu[0], iu[1]], loc_eig])
     debug_rec = _put_row(debug_rec, scan_idx.to(torch.int64), rec)
-    return (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
-            debug_rec)
+    out = (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
+           debug_rec)
+    return out if photo_cfg is None else out + (features,)
 
 
 def _init_inertial_step(window, traj_q, traj_p, q0, g0, bg, ba, ts,
@@ -483,17 +555,19 @@ def _marginalize(window, preints, fv, *, win_cfg):
 
 
 def _scan_state_step(state, scan_f, pt_valid, imu_f, *, resident, **kw):
-    """:func:`_scan_step` on the Sequencer's whole state (``STATE``);
-    ``resident`` = (q_bl, t_bl, ray_dirs, dither)."""
+    """:func:`_scan_step` on the Sequencer's whole state (``STATE``, or
+    ``PHOTO_STATE`` with the feature store last); ``resident`` = (q_bl,
+    t_bl, ray_dirs, dither, static_mask)."""
     (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
-     debug_rec) = state
+     debug_rec, *features) = state
     return _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
                       kf_q, kf_p, kf_count, traj_q, traj_p, debug_rec,
-                      *resident, **kw)
+                      *resident, *features, **kw)
 
 
 def _marginalize_step(state, *, win_cfg):
-    """:func:`_marginalize` on the Sequencer's whole state (``STATE``)."""
+    """:func:`_marginalize` on the Sequencer's whole state (``STATE`` or
+    ``PHOTO_STATE``)."""
     window, vmap, preints, fv, *logs = state
     window, preints, fv = _marginalize(window, preints, fv, win_cfg=win_cfg)
     return (window, vmap, preints, fv, *logs)
@@ -504,7 +578,7 @@ def _marginalize_step(state, *, win_cfg):
 # ---------------------------------------------------------------------------
 
 class Sequencer:
-    """Host orchestrator of the geometric LiDAR-inertial slice.
+    """Host orchestrator of the LiDAR-inertial slice.
     Deterministic: on a given device the same inputs in the same order
     give the same trajectory, bit for bit.
 
@@ -515,12 +589,15 @@ class Sequencer:
     e.g. for timing each stage) runs every step op by op. ``ray_dirs`` is
     the per-lane beam table the range codec needs: [N,3] unit directions
     (p = r * dir) or [N,6] direction + offset (p = s * dir + offset), at
-    full sensor density (``point_skip`` is applied here)."""
+    full sensor density (``point_skip`` is applied here). ``photo_cfg``
+    (a :class:`~mimosa_tpu_torch.lidar.photometric.PhotometricConfig`)
+    adds the photometric factor; scans then carry an intensity column."""
 
     def __init__(self, seq_cfg: SequencerConfig = SequencerConfig(),
                  win_cfg: win.WindowConfig = win.WindowConfig(),
                  map_cfg: vh.VoxelMapConfig = vh.VoxelMapConfig(),
                  geo_cfg: geo.GeometricConfig = geo.GeometricConfig(),
+                 photo_cfg: ph.PhotometricConfig = None,
                  *, device=None, dtype=torch.float32, ray_dirs=None,
                  eager=False):
         for name, need in _PORTED_ONLY.items():
@@ -528,15 +605,33 @@ class Sequencer:
                 raise NotImplementedError(
                     f"SequencerConfig.{name}={getattr(seq_cfg, name)!r} is "
                     f"not ported yet (the port supports {name}={need!r})")
+        if photo_cfg is not None and photo_cfg.exact_ouster \
+                and seq_cfg.point_skip != 1:
+            raise ValueError(
+                "exact_ouster needs the full organized cloud in sensor "
+                "index order: set point_skip=1 (geo_skip thins only the "
+                "geometric pipeline; point_skip would scramble the pixel-id "
+                "fill)")
         self.cfg = seq_cfg
         self.win_cfg = win_cfg
         self.map_cfg = map_cfg
         self.geo_cfg = geo_cfg
+        self.photo_cfg = photo_cfg
         self.device = require_cuda() if device is None \
             else torch.device(device)
         self.dtype = dtype
         f = dict(dtype=dtype, device=self.device)
         self._init_codec(ray_dirs)
+        self._state_names = STATE if photo_cfg is None else PHOTO_STATE
+        self.features = self._static_mask = None
+        if photo_cfg is not None:
+            self.features = ph.empty_features(photo_cfg, dtype, self.device)
+            mask = ph.load_static_mask(photo_cfg)
+            if mask is not None:
+                self._static_mask = torch.from_numpy(mask).to(self.device)
+            # the configuration's constants, made on the device before any
+            # step runs (a captured step holds no host copy)
+            ph.resident(photo_cfg, torch.zeros((), **f))
 
         self.imu = ImuBuffer(max_duration=seq_cfg.imu_max_buffer_duration,
                              acc_scale=seq_cfg.imu_acc_scale)
@@ -617,7 +712,7 @@ class Sequencer:
 
     # ----------------------------------------------------------- step runs
     def _state(self):
-        return tuple(getattr(self, k) for k in STATE)
+        return tuple(getattr(self, k) for k in self._state_names)
 
     def _run(self, key, inputs=()):
         """Run step variant ``key`` (("scan", marginalize_first, append) or
@@ -630,7 +725,7 @@ class Sequencer:
             out = fn(self._state(), *inputs)
         else:
             out = self.graphs.run(key, fn, self._state(), inputs)
-        for k, v in zip(STATE, out):
+        for k, v in zip(self._state_names, out):
             setattr(self, k, v)
 
     def _step_fn(self, key):
@@ -642,9 +737,10 @@ class Sequencer:
         _, marginalize_first, append = key
         return functools.partial(
             _scan_state_step, resident=(self.q_bl, self.t_bl,
-                                        self._ray_dirs_dev, self._dither_dev),
+                                        self._ray_dirs_dev, self._dither_dev,
+                                        self._static_mask),
             marginalize_first=marginalize_first, append=append,
-            **self._step_kw)
+            photo_cfg=self.photo_cfg, **self._step_kw)
 
     # ------------------------------------------------------- logged outputs
     @property
@@ -663,8 +759,9 @@ class Sequencer:
 
     def debug_records(self):
         """Per-scan debug records [n_scans, 17]: num_inlier, 4 status
-        counts, mean |r|, 3+3 degeneracy flags, photometric and rescue
-        slots (zero in this slice)."""
+        counts, mean |r|, 3+3 degeneracy flags, the photometric slots
+        (tracked, OOB, masked + occluded, NCC; zero without ``photo_cfg``)
+        and the rescue flag (zero: rescue is not ported)."""
         return self.debug_rec[: self.scan_idx, :17].cpu().numpy()
 
     def imu_localizability_records(self):
@@ -694,6 +791,15 @@ class Sequencer:
         r = self.debug_rec[self.scan_idx - 1].cpu().numpy()
         return (int(r[0]), r[1:5].astype(np.int64), float(r[5]),
                 r[6:9] > 0.5, r[9:12] > 0.5)
+
+    @property
+    def last_photo(self):
+        """(num_tracked, [tracked, oob, masked+occluded, ncc]) of the newest
+        scan, or None (no scan yet, or no ``photo_cfg``)."""
+        if self.photo_cfg is None or self.scan_idx == 0:
+            return None
+        r = self.debug_rec[self.scan_idx - 1].cpu().numpy()
+        return (int(r[12]), r[12:16].astype(np.int64))
 
     def write_tum(self, path):
         """TUM trajectory log: ts x y z qx qy qz qw."""
@@ -796,13 +902,19 @@ class Sequencer:
         self.imu.add_batch(ts, acc, gyro)
 
     # ----------------------------------------------------------------- scan
-    def stage_scan(self, ts_header, points, t_rel, valid=None):
+    def stage_scan(self, ts_header, points, t_rel, valid=None,
+                   intensity=None):
         """Pack a scan in the configured codec (:func:`_decode_scan`) and
         start its transfer to the device. Returns the handle for
-        ``add_scan(ts_header, staged=handle)``."""
+        ``add_scan(ts_header, staged=handle)``. ``intensity`` [N] travels
+        only for a photometric Sequencer (zero where not given)."""
         points = np.asarray(points)
         t_rel = np.asarray(t_rel)
         c, n = self.cfg, self.cfg.max_scan_points
+        photo = self.photo_cfg is not None
+        ncol = _scan_ncol(c, photo)
+        if not photo:
+            intensity = None
         with self.timers.stage("t_prepare"):
             if c.quantize_transfer:
                 if c.range_transfer:
@@ -815,14 +927,14 @@ class Sequencer:
                             f"lanes but the ray_dirs table covers only "
                             f"{self._ray_dirs_lanes}")
                     scan_q, t_max = native.pack_range(
-                        points, t_rel, valid, None, c.point_skip, n,
-                        _scan_ncol(c), c.quant_range_res, c.quant_t_res,
+                        points, t_rel, valid, intensity, c.point_skip, n,
+                        ncol, c.quant_range_res, c.quant_t_res,
                         c.quant_int_res, dither=c.quant_dither,
                         beam=self._beam_table)
                 else:
                     scan_q, t_max = native.pack_scan(
-                        points, t_rel, valid, None, c.point_skip, n,
-                        _scan_ncol(c), c.quant_pos_res, c.quant_t_res,
+                        points, t_rel, valid, intensity, c.point_skip, n,
+                        ncol, c.quant_pos_res, c.quant_t_res,
                         c.quant_int_res, dither=c.quant_dither)
                 raw = (points, t_rel, valid if valid is not None
                        else np.isfinite(points).all(-1))
@@ -840,20 +952,29 @@ class Sequencer:
             if k > 1:
                 points, t_rel, valid = points[::k], t_rel[::k], valid[::k]
             pts, tp, vd = _pad_scan(points, t_rel, valid, n)
-            scan = np.concatenate([pts, np.where(vd, tp, 0.0)[:, None]], 1)
+            cols = [pts, np.where(vd, tp, 0.0)[:, None]]
+            if photo:
+                inten = np.zeros(n)
+                if intensity is not None:
+                    it = np.asarray(intensity)[::k][:n]
+                    inten[:len(it)] = np.nan_to_num(it)
+                cols.append(inten[:, None])
+            scan = np.concatenate(cols, 1)
             return dict(ts_header=float(ts_header), t_end=t_end,
                         scan_dev=self._put(scan),
                         valid_dev=self._put(vd, torch.bool), raw=raw)
 
     def add_scan(self, ts_header, points=None, t_rel=None, valid=None,
-                 staged=None):
+                 intensity=None, staged=None):
         """points [N,3] in the lidar frame; t_rel [N] per-point time offsets
-        from ts_header [s]. Pass ``staged`` (from :meth:`stage_scan`)
-        instead of raw arrays to consume a scan staged ahead of time."""
+        from ts_header [s]; optional per-point intensity (photometric).
+        Pass ``staged`` (from :meth:`stage_scan`) instead of raw arrays to
+        consume a scan staged ahead of time."""
         self.counters["scans"] += 1
         self._ensure_log_capacity()
         if staged is None:
-            staged = self.stage_scan(ts_header, points, t_rel, valid)
+            staged = self.stage_scan(ts_header, points, t_rel, valid,
+                                     intensity)
         ts_header = staged["ts_header"]
         t_end = staged["t_end"]
 

@@ -4,11 +4,11 @@
 the synthetic room sequence, replays it through the port's Sequencer
 exactly as ``mimosa_tpu/io/synthetic_replay.py`` drives the JAX one, with
 the same default transfer codec (int16 with the subtractive dither), and
-prints the ATE. :func:`run` takes the world, trajectory, noise, codec and
-registration settings of the JAX package's ``run`` that the geometric
-scoreboard rows use (``scripts/dataset_evaluation.py``). It runs on the
-first CUDA device unless ``--device`` names another, and raises where there
-is no card.
+prints the ATE. :func:`run` takes the world, trajectory, noise, codec,
+registration and photometric settings of the JAX package's ``run`` that the
+geometric and photometric scoreboard rows use
+(``scripts/dataset_evaluation.py``). It runs on the first CUDA device unless
+``--device`` names another, and raises where there is no card.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from mimosa_tpu_torch.graph import sequencer as seq
 from mimosa_tpu_torch.graph import window as win
 from mimosa_tpu_torch.io import synthetic as syn
 from mimosa_tpu_torch.lidar import geometric as geo
+from mimosa_tpu_torch.lidar import photometric as ph
 from mimosa_tpu_torch.mapping import voxel_hash as vh
 
 
@@ -37,7 +38,7 @@ def feed(s, data, k, imu_i=0):
         s.add_imu(imu["ts"][imu_i], imu["acc"][imu_i], imu["gyro"][imu_i])
         imu_i += 1
     s.add_scan(scan["ts_header"], scan["points"], scan["t_rel"],
-               scan["valid"])
+               scan["valid"], intensity=scan.get("intensity"))
     return imu_i
 
 
@@ -57,11 +58,25 @@ def trajectory_ate(s, data):
                         data["gt"]["ts"], data["gt"]["pos"])
 
 
+def photo_config(lm, project_on_degeneracy=False):
+    """The photometric settings of the JAX package's replay for LiDAR
+    model ``lm``."""
+    return ph.PhotometricConfig(
+        rows=lm.n_rows, cols=lm.n_cols, fov_up=lm.fov_up,
+        fov_down=lm.fov_down, range_min=0.5, range_max=40.0,
+        gradient_threshold=2.0, nma_radius=5, num_features=48, margin=3,
+        intensity_scale=1.0, filter_brightness=False, remove_lines=False,
+        project_on_degeneracy=project_on_degeneracy)
+
+
 def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
         range_noise=0.0, world=None, tc=None, range_transfer=False,
-        use_4dof=False, project_degenerate=False):
+        use_4dof=False, project_degenerate=False, use_photometric=False,
+        project_on_degeneracy=False):
     """Replay a synthetic sequence (default: room_clean) on ``device``
-    (default: the first CUDA device; raises where there is none)."""
+    (default: the first CUDA device; raises where there is none).
+    ``use_photometric`` adds the photometric factor (PG-LIO) with the JAX
+    package's settings (:func:`photo_config`)."""
     device = require_cuda() if device is None else torch.device(device)
     world = world if world is not None else syn.room_world()
     tc = tc if tc is not None else syn.TrajectoryConfig(t_total=t_total)
@@ -81,6 +96,8 @@ def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
         geo_cfg=geo.GeometricConfig(
             sigma=0.05, loc_count_thresh=50.0, use_4dof=use_4dof,
             project_degenerate=project_degenerate),
+        photo_cfg=photo_config(lm, project_on_degeneracy)
+        if use_photometric else None,
         device=device,
         # the range codec's beam table: exact for this generator, whose
         # noise is radial

@@ -506,3 +506,186 @@ def test_same_key_variant_is_captured(room):
     a = np.asarray([p for _, p, _ in graph.trajectory])
     b = np.asarray([p for _, p, _ in eager.trajectory])
     np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+# ------------------------------------------------ the photometric factor
+
+def _photo_sequencer(eager):
+    """The room_photometric configuration of ``io.synthetic_replay.run``
+    (16x256 LiDAR, int16 codec with the intensity column), captured or
+    eager."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import photo_config
+
+    return seq.Sequencer(
+        seq.SequencerConfig(max_scan_points=4096, n_geo_points=4096,
+                            n_map_points=8192, geo_leaf=0.4,
+                            map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
+                            keyframe_rot_thresh=0.15),
+        win.WindowConfig(K=6),
+        vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17,
+                          plane_min_points=5, lru_horizon=0),
+        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0),
+        photo_config(syn.LidarModel()), device="cuda", eager=eager)
+
+
+@pytest.fixture(scope="module")
+def noisy_room(dev):
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    return syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=3.0),
+                        syn.LidarModel(), seed=0, imu_noise=0.01,
+                        range_noise=0.01)
+
+
+def _assert_features_equal(a, b):
+    for k, x in a["features"].items():
+        np.testing.assert_array_equal(x, b["features"][k], err_msg=k)
+
+
+def test_photometric_captured_replay_equals_eager(noisy_room):
+    """The photometric Sequencer replayed from its graphs and run op by op:
+    the same bits in every state field, the feature store included, with
+    features tracked on every step after the second."""
+    eager, graph = _photo_sequencer(True), _photo_sequencer(False)
+    n = len(noisy_room["scans"])
+    _feed(eager, noisy_room, range(n))
+    _feed(graph, noisy_room, range(n))
+    assert graph.graphs.replays > 10
+    a, b = _state(graph), _state(eager)
+    _assert_states_equal(a, b)
+    _assert_features_equal(a, b)
+    tracked = graph.debug_records()[2:, 12]
+    assert (tracked > 0).all(), tracked
+    assert graph.last_photo[0] == int(tracked[-1])
+
+
+def test_photometric_two_replays_are_bitwise_equal(noisy_room):
+    """The same state and scan through one photometric graph twice."""
+    from mimosa_tpu_torch import convert
+
+    s = _photo_sequencer(False)
+    n = 10
+    imu_i = _feed(s, noisy_room, range(n))
+    start = _state(s)
+    assert start["features"]["valid"].sum() > 10
+    captures = s.graphs.captures
+    _feed(s, noisy_room, [n], imu_i)
+    first = _state(s)
+    convert.load_sequencer_state(s, start)
+    _feed(s, noisy_room, [n], imu_i)
+    again = _state(s)
+    _assert_states_equal(again, first)
+    _assert_features_equal(again, first)
+    assert s.graphs.captures == captures
+
+
+def _photo_inputs(model):
+    """(config, make_frame arguments as CPU tensors) of a seeded scene:
+    four textured walls for the approximate model, an organized synthetic
+    room scan with a deskew-like T_Le_Lt and per-row shifts for the exact
+    one."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.lidar import photometric as ph
+
+    if model == "exact":
+        lm = syn.LidarModel()
+        data = syn.generate(syn.room_world(), syn.TrajectoryConfig(
+            t_total=1.5), lm, seed=0)
+        sc = data["scans"][-1]
+        raw = torch.tensor(np.nan_to_num(sc["points"]), dtype=torch.float32)
+        frac = (torch.arange(len(raw)) % lm.n_cols / lm.n_cols)[:, None]
+        q = lie.exp_so3(frac * torch.tensor([0.01, -0.02, 0.15]))
+        t = frac * torch.tensor([0.3, -0.1, 0.02])
+        shifts = tuple(int(s) for s in
+                       np.random.default_rng(7).integers(-12, 13, 16))
+        cfg = ph.PhotometricConfig(
+            rows=16, cols=256, fov_up=lm.fov_up, fov_down=lm.fov_down,
+            range_min=0.5, range_max=50.0, gradient_threshold=2.0,
+            nma_radius=3, num_features=40, margin=3, intensity_scale=1.0,
+            exact_ouster=True, pixel_shift_by_row=shifts,
+            beam_offset_m=0.015)
+        return cfg, (lie.se3_transform(q, t, raw),
+                     torch.tensor(sc["intensity"], dtype=torch.float32),
+                     torch.tensor(sc["valid"]), cfg, None, raw, q, t)
+    rng = np.random.default_rng(6)
+    pts = []
+    for axis, val in [(0, 6.0), (1, 5.0), (0, -6.0), (1, -5.0)]:
+        p = rng.uniform(-7, 7, size=(10000, 3))
+        p[:, 2] = rng.uniform(-2.5, 2.5, size=10000)
+        p[:, axis] = val
+        pts.append(p)
+    pts = np.concatenate(pts)
+    inten = np.clip(120 + 60 * np.sin(2.0 * pts[:, 0])
+                    * np.cos(1.5 * pts[:, 1])
+                    + 40 * np.sin(3.0 * pts[:, 2]), 0, 255)
+    cfg = ph.PhotometricConfig(rows=32, cols=256, range_min=0.5,
+                               range_max=50.0, gradient_threshold=2.0,
+                               nma_radius=3, num_features=40, margin=4,
+                               intensity_scale=1.0)
+    return cfg, (torch.tensor(pts, dtype=torch.float32),
+                 torch.tensor(inten, dtype=torch.float32),
+                 torch.ones(len(pts), dtype=torch.bool), cfg)
+
+
+@pytest.mark.parametrize("model", ["approximate", "exact"])
+def test_photometric_frame_and_factor_on_the_card_match_cpu(dev, model):
+    """make_frame, detect_features and linearize on the card against the
+    same calls on the CPU, with the tolerances of
+    tests/test_torch_photometric.py: masks, validity, statuses exact;
+    images within 1e-3 on the 0-255 scale; patch points within 1e-5 m;
+    H and b within rtol 2e-4 of their largest entry. Detection and the
+    factor take the CPU's frame on both devices (identical inputs)."""
+    from mimosa_tpu_torch.lidar import photometric as ph
+
+    def on(x, d):
+        if x is None or isinstance(x, ph.PhotometricConfig):
+            return x
+        if type(x) is tuple:
+            return tuple(on(v, d) for v in x)
+        if isinstance(x, tuple):
+            return type(x)(*[on(v, d) for v in x])
+        return x.to(d)
+
+    cfg, args = _photo_inputs(model)
+    cpu = ph.make_frame(*args)
+    card = ph.make_frame(*on(args, dev))
+    for name, a in cpu._asdict().items():
+        if a is None:
+            assert getattr(card, name) is None
+            continue
+        b = getattr(card, name).cpu()
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), name
+        else:
+            tol = 1e-3 if name in ("intensity", "gx", "gy") else 1e-5
+            torch.testing.assert_close(b, a, rtol=0, atol=tol, msg=name)
+    assert cpu.mask.float().mean() > 0.1
+
+    q = lie.quat_identity()
+    t = torch.zeros(3)
+    feats = ph.detect_features(cpu, ph.empty_features(cfg), q, t, cfg)
+    feats_d = ph.detect_features(on(cpu, dev), ph.empty_features(cfg,
+                                                                 device=dev),
+                                 q.to(dev), t.to(dev), cfg)
+    assert int(feats.valid.sum()) > 10
+    assert torch.equal(feats.valid, feats_d.valid.cpu())
+    assert torch.equal(feats.life, feats_d.life.cpu())
+    for name in ("pts_w", "psi", "center_w"):
+        torch.testing.assert_close(getattr(feats_d, name).cpu(),
+                                   getattr(feats, name), rtol=0, atol=1e-5)
+
+    qp, tp = lie.se3_retract(q, t, torch.tensor(
+        [0.002, -0.001, 0.006, 0.02, -0.01, 0.01]))
+    ref = ph.linearize(cpu, feats, qp, tp, cfg)
+    out = ph.linearize(on(cpu, dev), on(feats, dev), qp.to(dev), tp.to(dev),
+                       cfg)
+    assert int(ref.num_tracked) > 5
+    assert torch.equal(out.status_counts.cpu(), ref.status_counts)
+    assert torch.equal(out.tracked.cpu(), ref.tracked)
+    for name in ("H", "b"):
+        o, r = getattr(out, name).cpu(), getattr(ref, name)
+        torch.testing.assert_close(o, r, rtol=0,
+                                   atol=2e-4 * r.abs().max().item())

@@ -29,6 +29,7 @@ from mimosa_tpu.graph import sequencer as jseq
 from mimosa_tpu_torch import native as tnative
 from mimosa_tpu_torch.graph import sequencer as tseq
 from mimosa_tpu_torch.io import synthetic as tsyn
+from mimosa_tpu_torch.lidar import photometric as tph
 
 RES = dict(pos=0.0025, rng=0.0015, t=4e-6, inten=0.25)
 
@@ -157,10 +158,11 @@ CODECS = {
 }
 
 
-@pytest.mark.parametrize("codec", sorted(CODECS))
-def test_decode_matches_jax(codec):
+def _staged_and_decoded(codec, photo):
     """One synthetic scan (16x256 LiDAR, skip 2, padded to 2560 lanes)
-    staged by the port and decoded by both packages."""
+    staged by the port (with its intensity column for a photometric
+    Sequencer, ``photo``) and decoded by both packages: ((points, times,
+    intensity, valid) of the port, the same of JAX)."""
     kw = dict(max_scan_points=2560, point_skip=2, **CODECS[codec])
     lm = tsyn.LidarModel()
     data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
@@ -174,22 +176,49 @@ def test_decode_matches_jax(codec):
         scan = dict(scan, points=(scan["points"] + np.where(
             scan["valid"][:, None], off, 0.0)).astype(np.float32))
     s = tseq.Sequencer(tseq.SequencerConfig(**kw), device="cpu",
-                       ray_dirs=dirs if kw.get("range_transfer") else None)
+                       ray_dirs=dirs if kw.get("range_transfer") else None,
+                       photo_cfg=tph.PhotometricConfig(rows=16, cols=256)
+                       if photo else None)
     st = s.stage_scan(scan["ts_header"], scan["points"], scan["t_rel"],
-                      scan["valid"])
+                      scan["valid"], intensity=scan["intensity"])
     t_offset = np.float32(0.0371)
-    pts, t_pts, valid = tseq._decode_scan(
+    out = tseq._decode_scan(
         st["scan_dev"], st["valid_dev"], torch.tensor(t_offset), s.cfg,
         torch.float32, s._ray_dirs_dev, s._dither_dev)
-    jp, jt, _, jv = jseq._decode_scan(
+    ref = jseq._decode_scan(
         jnp.asarray(st["scan_dev"].numpy()),
         None if st["valid_dev"] is None
         else jnp.asarray(st["valid_dev"].numpy()), jnp.float32(t_offset),
         jseq.SequencerConfig(**kw), np.dtype(np.float32),
         None if s._ray_dirs_dev is None
         else jnp.asarray(s._ray_dirs_dev.numpy()))
+    return out, ref
+
+
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_decode_matches_jax(codec):
+    """One synthetic scan staged by the port and decoded by both packages
+    (:func:`_staged_and_decoded`); a geometric Sequencer ships no intensity,
+    so both decode zeros."""
+    (pts, t_pts, inten, valid), (jp, jt, ji, jv) = _staged_and_decoded(
+        codec, photo=False)
+    np.testing.assert_array_equal(inten.numpy(), np.asarray(ji))
+    assert not inten.any()
     assert pts.dtype == t_pts.dtype == torch.float32
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jv))
     assert 1000 < int(valid.sum()) < 2560
+    np.testing.assert_array_max_ulp(pts.numpy(), np.asarray(jp), maxulp=2)
+    np.testing.assert_array_max_ulp(t_pts.numpy(), np.asarray(jt), maxulp=2)
+
+
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_decode_intensity_matches_jax(codec):
+    """A photometric Sequencer's pack carries the intensity column; both
+    packages decode the same points, times, intensity and mask."""
+    (pts, t_pts, inten, valid), (jp, jt, ji, jv) = _staged_and_decoded(
+        codec, photo=True)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(inten.numpy(), np.asarray(ji))
+    assert float(inten.max()) > 50.0
     np.testing.assert_array_max_ulp(pts.numpy(), np.asarray(jp), maxulp=2)
     np.testing.assert_array_max_ulp(t_pts.numpy(), np.asarray(jt), maxulp=2)

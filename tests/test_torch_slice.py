@@ -29,6 +29,7 @@ from mimosa_tpu.graph import sequencer as jseq
 from mimosa_tpu.graph import window as jwin
 from mimosa_tpu.io import synthetic as jsyn
 from mimosa_tpu.lidar import geometric as jgeo
+from mimosa_tpu.lidar import photometric as jph
 from mimosa_tpu.mapping import voxel_hash as jvh
 from mimosa_tpu_torch import convert
 from mimosa_tpu_torch.graph import sequencer as tseq
@@ -36,6 +37,7 @@ from mimosa_tpu_torch.graph import window as twin
 from mimosa_tpu_torch.io import synthetic as tsyn
 from mimosa_tpu_torch.io import synthetic_replay as trep
 from mimosa_tpu_torch.lidar import geometric as tgeo
+from mimosa_tpu_torch.lidar import photometric as tph
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
 
@@ -53,6 +55,7 @@ def _release_compiled_programs():
     (jwin.WindowConfig, twin.WindowConfig),
     (jvh.VoxelMapConfig, tvh.VoxelMapConfig),
     (jgeo.GeometricConfig, tgeo.GeometricConfig),
+    (jph.PhotometricConfig, tph.PhotometricConfig),
 ], ids=lambda p: p[0].__name__)
 def test_config_fields_and_defaults_match(pair):
     j, t = pair
@@ -255,6 +258,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib')) or k == 'mimosa_tpu' or "
         "k.startswith('mimosa_tpu.'))\n"
+        "assert 'mimosa_tpu_torch.lidar.photometric' in names, names\n"
         "assert len(names) > 12, names\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
