@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --stage-split   # only the per-stage split (7.)
+    python3 chip_smoke.py --stage-split   # only the per-stage split (8.)
 
 Drives the port (``mimosa_tpu_torch``) through its main paths on the card
 and prints one line per phase; any failure raises, so the exit code is
@@ -46,23 +46,44 @@ of JAX or of the JAX package.
    scans, the device time and device ops a scan of the photometric stages
    (frame build, the 4 linearizations, lifecycle + detection) in profiler
    ranges;
-6. scoreboard: the geometric and photometric rows of the JAX package's
-   synthetic scoreboard through
-   ``mimosa_tpu_torch.io.synthetic_replay.run`` on the card, with the
-   settings and gates of ``scripts/dataset_evaluation.py``: room_clean
-   (int16 codec, < 0.010 m), room_noisy, room_range_codec, fast_spin,
+6. multimodal: the four-modality stream at the widths of 4. (the 4 s
+   room from a 64x512 LiDAR, K=8, f32 codec) with 20 Hz radar frames of
+   512 targets and 10 Hz odometry, their clocks 15 ms out of phase with
+   the LiDAR's, and the late and re-ordered arrivals of
+   ``synthetic_replay.four_modality_stream`` (one radar frame in four
+   60 ms late, every sixth scan delivered again 150 ms late, two swapped
+   scans, a same-key duplicate, odometry right after a scan, an odometry
+   outage), captured (this slice's main path) and eager in one process
+   with a synchronize after each event. Each: ATE < 0.08 m, every late
+   path taken (``MM_COUNTERS``), the ICP kernel launched
+   (n_gn_iters + 1) times per scan step in order and late (the count, and
+   the kernels the profiler sees in a stretch of 14 events around the
+   second swapped scan), host ms an event by kind (median, p90), device
+   ms and ops an event by kind (profiler ranges over that stretch), the
+   device's idle share, wall seconds per sensor second and the peak
+   device memory; the captured run captured each step variant
+   (``MM_VARIANTS``) once; captured and eager positions within 0.01 m;
+7. scoreboard: the rows of the JAX package's synthetic scoreboard on the
+   card, with the settings and gates of ``scripts/dataset_evaluation.py``:
+   through ``mimosa_tpu_torch.io.synthetic_replay.run`` room_clean (int16
+   codec, < 0.010 m), room_noisy, room_range_codec, fast_spin,
    room_photometric (< 0.08 m), corridor_geo_proj (< 3.0 m) and
-   corridor_pglio (< 0.80 m);
-7. with ``--stage-split`` and nothing else: the entry-width replay run
+   corridor_pglio (< 0.80 m); streamed event by event dropout_ooo
+   (< 0.080 m) and the corridor with 20 Hz radar through ``add_radar``
+   (< 0.20 m, the gate of the JAX package's bulk corridor_radar_bulk row),
+   printed beside corridor_geo_proj;
+8. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
    the scan step, printing host ms a scan step by stage (no JSON lines).
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
-of the kernel (launches on the entry-width path and on the photometric
-path, error, times and bound).
+of the kernel (launches on the entry-width, photometric and four-modality
+paths, error, times and bound), and the line before that the seconds each
+phase took.
 """
 
+import bisect
 import contextlib
 import json
 import statistics
@@ -360,12 +381,12 @@ def replay_timed(s, data, ks, imu_i=0):
     return ms, imu_i
 
 
-def device_busy_ms(prof):
-    """Union of the device intervals (kernels, copies) a profile recorded,
-    in ms, and their number (the device-side spans of profiler ranges are
-    not device work and do not count)."""
+def device_busy_ms(events):
+    """Union of the device intervals (kernels, copies) among a profile's
+    ``events``, in ms, and their number (the device-side spans of profiler
+    ranges are not device work and do not count)."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
+                   for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
     busy, end = 0, None
@@ -383,14 +404,21 @@ def entry_replay(**kw):
     """(Sequencer at the widths of ``__graft_entry__.entry()``, its 4 s
     room sequence from a 64x512 LiDAR); ``kw`` (``device``, ``eager``) as
     the Sequencer takes them, the default device where not given."""
-    from mimosa_tpu_torch.graph import sequencer as seq
-    from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.io import synthetic as syn
-    from mimosa_tpu_torch.lidar import geometric as geo
-    from mimosa_tpu_torch.mapping import voxel_hash as vh
 
     data = syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=4.0),
                         syn.LidarModel(n_rows=64, n_cols=512), seed=0)
+    return entry_sequencer(**kw), data
+
+
+def entry_sequencer(**kw):
+    """The Sequencer at the widths of ``__graft_entry__.entry()`` with the
+    room settings of ``synthetic_replay.run``."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.mapping import voxel_hash as vh
+
     s = seq.Sequencer(
         seq.SequencerConfig(max_scan_points=32768, n_geo_points=8192,
                             n_map_points=8192, n_gn_iters=3,
@@ -401,7 +429,7 @@ def entry_replay(**kw):
                           plane_min_points=5, lru_horizon=0),
         geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), **kw)
     check(s.device.type == "cuda", f"the Sequencer chose {s.device}")
-    return s, data
+    return s
 
 
 def entry_run(eager):
@@ -472,6 +500,7 @@ def slice_run(tag, label, s, data, ate_gate, stage_ranges=False):
     launches = icp_cuda.LAUNCHES
     steps = s.scan_idx
     want = (s.cfg.n_gn_iters + 1) * steps
+    events = prof.events()
     name = "eager" if eager else "captured"
     check(steps > 20, f"{name}: only {steps} scan steps ran")
     check(launches == want, f"{name}: ICP kernel launched {launches} times "
@@ -479,7 +508,7 @@ def slice_run(tag, label, s, data, ate_gate, stage_ranges=False):
     # the count above is bookkeeping under replay (a capture records the
     # launches and the replays add them); the profiler sees the kernels the
     # card ran in the last scans
-    ran = sum(1 for e in prof.events()
+    ran = sum(1 for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA
               and "icp_linearize_kernel" in e.name)
     want_ran = (s.cfg.n_gn_iters + 1) * n_prof
@@ -490,7 +519,7 @@ def slice_run(tag, label, s, data, ate_gate, stage_ranges=False):
     ate = trajectory_ate(s, data)
     check(ate < ate_gate, f"{name}: {label} ATE {ate:.4f} m >= {ate_gate}")
     steady = ms[5:]           # after the first 5 scans (init included)
-    busy, n_dev = device_busy_ms(prof)
+    busy, n_dev = device_busy_ms(events)
     check(n_dev > 0, f"{name}: the profiler saw no device work")
     out = dict(name=name, launches=launches, ran=ran, steps=steps, ate=ate,
                med=statistics.median(steady),
@@ -632,6 +661,218 @@ def photo_phase():
     return captured_vs_eager("photo", cap, eag)
 
 
+# the four-modality phase's event kinds, as the host sorts an event before
+# it runs (a late one is no newer than the newest state)
+MM_KINDS = ("scan", "radar", "odometry", "ooo scan", "ooo radar")
+# the step variants that stream runs (radar and odometry keys also carry
+# their configuration)
+MM_VARIANTS = {("scan", False, True), ("scan", False, False), ("scan_ooo",),
+               ("marginalize",), ("declare",), ("radar", "declare"),
+               ("radar", "attach"), ("radar", "samekey"), ("radar", "ooo"),
+               ("odom", True), ("odom", False)}
+# late paths each of which the stream must take
+MM_COUNTERS = ("radar_ooo_inserted", "radar_ooo_samekey", "scans_ooo_inserted",
+               "scans_ooo_samekey", "scans_same_key", "odom_anchor")
+
+
+def mm_stream():
+    """The four-modality stream at entry widths: the 4 s room from a 64x512
+    LiDAR (the radar and odometry clocks 15 ms out of phase with it), 20 Hz
+    radar frames of 512 targets (``RADAR_BULK_PAD``; some fail the cone
+    gates), 10 Hz odometry, and the late and re-ordered arrivals of
+    ``synthetic_replay.four_modality_stream``."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import four_modality_stream
+
+    return four_modality_stream(
+        syn.TrajectoryConfig(t_total=4.0, t_stationary=1.23),
+        syn.LidarModel(n_rows=64, n_cols=512), n_targets=512)
+
+
+def mm_kind(s, event):
+    """The event's kind in ``MM_KINDS``, from the host state before it."""
+    from mimosa_tpu_torch.graph.sequencer import Sequencer
+
+    _, kind, m = event
+    if kind == "odom":
+        return "odometry"
+    t = Sequencer._scan_t_end(m) if kind == "scan" else m["ts"]
+    late = s.initialized and t <= s.last_state_ts
+    return ("ooo " if late else "") + kind
+
+
+def variant(key):
+    return key[:2] if key[0] in ("radar", "odom") else key
+
+
+def busy_by_range(events, names):
+    """{name: [device ms, device ops, calls]} of the profiler ranges
+    ``names`` among a profile's ``events``: the device work that started
+    inside each range (each ends in a synchronize, so a range holds its
+    event's device work)."""
+    CPU, CUDA = (torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA)
+    rngs = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events
+                  if e.device_type == CPU and e.name in names)
+    starts = [r[0] for r in rngs]
+    out = {n: [0.0, 0, 0] for n in names}
+    for r in rngs:
+        out[r[2]][2] += 1
+    for e in events:
+        if e.device_type != CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= rngs[i][1]:
+            out[rngs[i][2]][0] += e.time_range.elapsed_us() / 1e3
+            out[rngs[i][2]][1] += 1
+    return out
+
+
+def mm_run(eager, data, events):
+    """The four-modality stream through the entry-width Sequencer, captured
+    or eager, with a synchronize after each event: ms per event by kind
+    (an event that ran a variant's warm-up or capture counted apart), and
+    a profiled stretch around the second swapped scan's insertion with
+    each event in a profiler range named by its kind."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mimosa_tpu_torch.io.synthetic_replay import (feed_event,
+                                                      trajectory_ate)
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    s = entry_sequencer(eager=eager)
+    name = "eager" if eager else "captured"
+    check((s.graphs is None) == eager, "the Sequencer's capture setting")
+    # the stretch: the later of the two swapped scans (n/2 + 3), arriving
+    # after its successor, and the events around it
+    sc = data["scans"][len(data["scans"]) // 2 + 3]
+    late = next(i for i, (t, _, m) in enumerate(events)
+                if m is sc and t > s._scan_t_end(sc))
+    w0, w1 = late - 8, late + 6
+    torch.cuda.reset_peak_memory_stats()
+    icp_cuda.LAUNCHES = 0
+    rows, imu_i, prof = [], 0, None
+    for i, ev in enumerate(events):
+        if i == w0:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+            launches0, steps0 = icp_cuda.LAUNCHES, s.scan_idx
+        kind = mm_kind(s, ev)
+        g0 = None if eager else (len(s.graphs.warm), s.graphs.captures)
+        ready = s.initialized
+        t0 = time.perf_counter()
+        with record_function(kind) if w0 <= i < w1 \
+                else contextlib.nullcontext():
+            imu_i = feed_event(s, data, ev, imu_i)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        setup = not eager and g0 != (len(s.graphs.warm), s.graphs.captures)
+        rows.append((kind, ms, setup, ready, ev[0], w0 <= i < w1))
+        if i == w1 - 1:
+            prof.__exit__(None, None, None)
+            ran_launches = icp_cuda.LAUNCHES - launches0
+            win_steps = s.scan_idx - steps0
+    launches, steps = icp_cuda.LAUNCHES, s.scan_idx
+    n1 = s.cfg.n_gn_iters + 1
+    check(launches == n1 * steps, f"{name}: ICP kernel launched {launches} "
+          f"times in {steps} scan steps (in order and late), expected "
+          f"{n1 * steps}")
+    events_p = prof.events()
+    ran = sum(1 for e in events_p
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "icp_linearize_kernel" in e.name)
+    check(ran == ran_launches == n1 * win_steps, f"{name}: the profiler saw "
+          f"{ran} ICP kernels run in the profiled stretch, the count says "
+          f"{ran_launches}, its {win_steps} scan steps need {n1 * win_steps}")
+    c = s.counters
+    for k in MM_COUNTERS:
+        check(c.get(k, 0) > 0, f"{name}: the stream never took {k}: {c}")
+    traj = np.asarray([p for _, p, _ in s.trajectory])
+    check(np.isfinite(traj).all(), f"{name}: non-finite poses")
+    ate = trajectory_ate(s, data)
+    check(ate < ENTRY_ATE_GATE, f"{name}: four-modality ATE {ate:.4f} m >= "
+          f"{ENTRY_ATE_GATE}")
+    out = dict(name=name, launches=launches, ran=ran, steps=steps, ate=ate,
+               traj=traj, counters=dict(c),
+               mem=torch.cuda.max_memory_allocated() / 2**20)
+    live = [r for r in rows if r[3]]
+    steady = [r for r in live if not r[2]]
+    span = live[-1][4] - live[0][4]
+    out["wall_all"] = sum(r[1] for r in live) / 1e3 / span
+    out["wall_steady"] = (statistics.mean(r[1] for r in steady) * len(live)
+                          / 1e3 / span)
+    out["ms"] = {k: [r[1] for r in steady if r[0] == k] for k in MM_KINDS}
+    out["setup_ms"] = [r[1] for r in live if r[2]]
+    out["dev"] = busy_by_range(events_p, MM_KINDS)
+    check(all(out["dev"][k][2] > 0 for k in MM_KINDS), f"{name}: the "
+          f"profiled stretch lacks a kind: {out['dev']}")
+    # the device's idle share of the steady stream: each kind's device ms
+    # an event (the profiled stretch) over its unprofiled host ms
+    busy = sum(out["dev"][k][0] / out["dev"][k][2] * len(v)
+               for k, v in out["ms"].items())
+    out["idle"] = 100 * (1 - busy / sum(sum(v) for v in out["ms"].values()))
+    print(f"[multimodal] {name}: {len(events)} events ({steps} scan steps, "
+          f"{c['radar_frames']} radar frames, {c['odom_msgs']} odometry "
+          f"messages), ICP kernel launches {launches} (= {n1} x {steps}), "
+          f"ATE {ate:.5f} m (gate {ENTRY_ATE_GATE}), peak device memory "
+          f"{out['mem']:.0f} MiB; counters {c}", flush=True)
+    print(f"[multimodal] {name}: host ms an event (synchronized), median / "
+          f"p90 / events: " + ", ".join(
+              f"{k} {statistics.median(v):.2f} / "
+              f"{float(np.percentile(v, 90)):.2f} / {len(v)}"
+              for k, v in out["ms"].items() if v)
+          + (f"; {len(out['setup_ms'])} events ran a warm-up or a capture, "
+             f"{sum(out['setup_ms']) / 1e3:.2f} s in all"
+             if out["setup_ms"] else ""), flush=True)
+    print(f"[multimodal] {name}: profiled stretch of {w1 - w0} events: "
+          f"{ran} ICP kernels ran (= {n1} x {win_steps} scan steps), device "
+          f"ms / device ops an event by kind: " + ", ".join(
+              f"{k} {v[0] / v[2]:.3f} / {v[1] / v[2]:.0f} ({v[2]})"
+              for k, v in out["dev"].items())
+          + f"; device idle {out['idle']:.1f}% of the steady stream's host "
+          f"time; "
+          f"wall seconds per sensor second {out['wall_steady']:.3f} steady, "
+          f"{out['wall_all']:.3f} with set-up, over {span:.2f} s", flush=True)
+    if not eager:
+        g = s.graphs
+        kinds = sorted({variant(k) for k in g.graphs}, key=str)
+        check(set(kinds) == MM_VARIANTS, f"captured variants {kinds}")
+        check(g.captures == len(g.graphs), f"{g.captures} captures of "
+              f"{len(g.graphs)} variants: one was captured again")
+        out["graphs"] = {str(variant(k)): g.graphs[k][1] for k in g.graphs}
+        print(f"[multimodal] captured: {g.captures} graphs, one a variant, "
+              f"{g.replays} replays; ICP launches each records: "
+              + ", ".join(f"{k} {v}" for k, v in out["graphs"].items()),
+              flush=True)
+    return out
+
+
+def multimodal_phase():
+    """The four-modality stream at entry widths, captured (this slice's
+    main path) and then eager in one process."""
+    t0 = time.perf_counter()
+    data, events = mm_stream()
+    print(f"[multimodal] {len(events)} events generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cap = mm_run(False, data, events)
+    eag = mm_run(True, data, events)
+    check(cap["counters"] == eag["counters"], "captured and eager counters "
+          "differ")
+    check(cap["traj"].shape == eag["traj"].shape, "trajectory lengths differ")
+    gap = float(np.abs(cap["traj"] - eag["traj"]).max())
+    check(gap < CAPTURE_GAP, f"multimodal: captured and eager positions "
+          f"differ by {gap:.4f} m")
+    med = {n: statistics.median(r["ms"]["radar"]) for n, r in
+           (("cap", cap), ("eag", eag))}
+    print(f"[multimodal] captured vs eager: radar ms an event {med['cap']:.2f}"
+          f" vs {med['eag']:.2f}, device idle {cap['idle']:.1f}% vs "
+          f"{eag['idle']:.1f}%, ATE {cap['ate']:.5f} vs {eag['ate']:.5f} m, "
+          f"largest position gap {gap:.2e} m (gate {CAPTURE_GAP})",
+          flush=True)
+    return cap["launches"], cap["ran"]
+
+
 # stages of the scan step timed by --stage-split: (module, function, name)
 STAGES = (
     ("mimosa_tpu_torch.lidar.deskew", "deskew", "deskew"),
@@ -701,6 +942,7 @@ def scoreboard_phase():
     from mimosa_tpu_torch.io import synthetic as syn
     from mimosa_tpu_torch.io import synthetic_replay
 
+    ates = {}
     for name, kw, gate in SCOREBOARD:
         kw = dict(kw)
         if "tc" in kw:
@@ -720,6 +962,105 @@ def scoreboard_phase():
               f"incl. first-call set-up and captures, counters "
               f"{out['counters']}", flush=True)
         check(out["ate"] < gate, f"{name} ATE {out['ate']:.4f} m >= {gate}")
+        ates[name] = out["ate"]
+    for name, build, gate in STREAM_ROWS:
+        ates[name] = stream_row(name, *build(), gate)
+    print(f"[scoreboard] corridor: ATE {ates['corridor_radar']:.5f} m with "
+          f"20 Hz radar streamed against {ates['corridor_geo_proj']:.5f} m "
+          f"with geometry alone (corridor_geo_proj): the Doppler factor "
+          f"observes the velocity along the axis the walls leave free",
+          flush=True)
+
+
+def row_sequencer(**geo_kw):
+    """The Sequencer of the JAX scoreboard's dropout_ooo and
+    corridor_radar_bulk rows (scripts/dataset_evaluation.py:178-190,
+    241-252): 16x256 LiDAR, 4096 points, K=6, 2^17 voxels, int16 codec."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.mapping import voxel_hash as vh
+
+    return seq.Sequencer(
+        seq.SequencerConfig(max_scan_points=4096, n_geo_points=4096,
+                            n_map_points=8192, geo_leaf=0.4,
+                            map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
+                            keyframe_rot_thresh=0.15, n_gn_iters=3),
+        win.WindowConfig(K=6),
+        vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17, plane_min_points=5,
+                          lru_horizon=0),
+        geo.GeometricConfig(**geo_kw))
+
+
+def dropout_ooo():
+    """The dropout_ooo row (scripts/dataset_evaluation.py:165-225): the
+    8 s noisy room (seed 3) from a 16x256 LiDAR with 15% of the scans
+    dropped, every ninth pair swapped and two same-key duplicates, scan by
+    scan (default GeometricConfig)."""
+    from mimosa_tpu_torch.graph.sequencer import Sequencer
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import dropout_scans
+
+    data = syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=8.0),
+                        syn.LidarModel(), seed=3, imu_noise=0.01,
+                        range_noise=0.01)
+    events = [(Sequencer._scan_t_end(sc), "scan", sc)
+              for sc in dropout_scans(data)]
+    return row_sequencer(), data, events
+
+
+def corridor_radar():
+    """The corridor_radar_bulk row's sequence and settings
+    (scripts/dataset_evaluation.py:227-262: the 8 s corridor, 20 Hz radar
+    Doppler, degeneracy projection on), streamed event by event through
+    add_scan and add_radar instead of the bulk scheduler."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import multimodal_events
+
+    tc = syn.TrajectoryConfig(t_total=8.0, amp=(4.0, 0.6, 0.3),
+                              center=(40.0, 2.0, 1.5), yaw_rate=0.15)
+    data = syn.generate(syn.corridor_world(), tc, syn.LidarModel(), seed=0,
+                        imu_noise=0.01, range_noise=0.005)
+    radar = syn.generate_radar(syn.make_trajectory(tc), tc, seed=0)
+    return (row_sequencer(sigma=0.05, loc_count_thresh=50.0,
+                          project_degenerate=True),
+            data, multimodal_events(data, radar))
+
+
+# the streamed scoreboard rows: name, (Sequencer, data, events), ATE gate
+# [m] (dataset_evaluation.py:299, and corridor_radar_bulk's for the
+# corridor)
+STREAM_ROWS = (("dropout_ooo", dropout_ooo, 0.080),
+               ("corridor_radar", corridor_radar, 0.20))
+
+
+def stream_row(name, s, data, events, gate):
+    """One streamed scoreboard row on the card (captured steps): its ATE,
+    under ``gate``."""
+    from mimosa_tpu_torch.io.synthetic_replay import (feed_event,
+                                                      trajectory_ate)
+
+    check(s.device.type == "cuda", f"{name} ran on {s.device}")
+    t0 = time.perf_counter()
+    imu_i = 0
+    for ev in events:
+        imu_i = feed_event(s, data, ev, imu_i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(s.graphs.replays > 0, f"{name}: no captured step was replayed")
+    ate = trajectory_ate(s, data)
+    c = s.counters
+    if name == "dropout_ooo":
+        # the failure-handling paths of the JAX row fire
+        check(c["scans_dropped_ooo"] + c.get("scans_ooo_inserted", 0) > 0
+              and c["scans_same_key"] > 0,
+              f"dropout_ooo took no late or same-key path: {c}")
+    print(f"[scoreboard] {name}: ATE {ate:.5f} m (gate {gate}), "
+          f"{len(events)} events streamed, int16 codec, "
+          f"{1e3 * wall / len(events):.2f} ms an event incl. first-call "
+          f"set-up and captures, counters {c}", flush=True)
+    check(ate < gate, f"{name} ATE {ate:.4f} m >= {gate}")
+    return ate
 
 
 def main():
@@ -752,9 +1093,18 @@ def main():
         stage_split_phase()
         return 0
     timings = kernel_phase(dev)
+    clock = [("start", time.perf_counter())]
     launches, ran = slice_phase()
+    clock.append(("slice", time.perf_counter()))
     photo_launches, photo_ran = photo_phase()
+    clock.append(("photo", time.perf_counter()))
+    mm_launches, mm_ran = multimodal_phase()
+    clock.append(("multimodal", time.perf_counter()))
     scoreboard_phase()
+    clock.append(("scoreboard", time.perf_counter()))
+    print("[clock] seconds by phase: " + ", ".join(
+        f"{n} {t - t_prev:.1f}" for (_, t_prev), (n, t)
+        in zip(clock, clock[1:])), flush=True)
 
     at = timings[8192]
     rec = dict(name="icp_linearize", route="cuda",
@@ -766,7 +1116,9 @@ def main():
                library_ms=None, bound_us=1e3 * at["bound_ms"],
                device_us=1e3 * at["device_ms"], host_ms=at["host_ms"],
                profiled_runs=ran, launches_photometric=photo_launches,
-               profiled_runs_photometric=photo_ran)
+               profiled_runs_photometric=photo_ran,
+               launches_multimodal=mm_launches,
+               profiled_runs_multimodal=mm_ran)
     print(json.dumps({"kernels": [rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 """mimosa_tpu_torch — the PyTorch/CUDA port of ``mimosa_tpu``.
 
-The streaming LiDAR-inertial scan step (decode -> deskew -> downsample ->
-predict/append -> Gauss-Newton with live point-to-plane ICP and,
-optionally, the photometric patch factor of PG-LIO -> prior absorption ->
-keyframe map update), written as plain functions on torch tensors and, on
-the card, captured as CUDA graphs (``graph/captured.py``). The ICP
+The four-modality streaming estimator: the LiDAR-inertial scan step
+(decode -> deskew -> downsample -> predict/append -> Gauss-Newton with
+live point-to-plane ICP and, optionally, the photometric patch factor of
+PG-LIO -> prior absorption -> keyframe map update), the radar Doppler and
+external-odometry factors (``radar/``, ``odometry/``), and late scans and
+radar frames collapsed onto a neighbouring state or inserted mid-window,
+written as plain functions on torch tensors and, on the card, captured as
+CUDA graphs (``graph/captured.py``). The ICP
 linearization, the one kernel the JAX package wrote in Pallas
 (``mimosa_tpu/ops/icp_pallas.py``), is a hand-written CUDA kernel for
 Hopper here (``ops/icp_cuda.py``, ``csrc/icp_linearize.cu``); the host

@@ -14,6 +14,11 @@ nor ``mimosa_tpu``:
 
 plus ``"features": {...}`` (the photometric feature store, a
 ``lidar.photometric.Features`` by field) for a photometric Sequencer.
+``"host"`` also carries, where set (``SEQ_HOST_SENSORS``), the radar and
+odometry configurations as dicts of their fields and the odometry anchor
+``_odom_prev`` as dict(slot, q, t) with q and t as tuples of floats, so
+that a state taken mid-odometry-stream continues with the same next
+between factor.
 
 ``load_sequencer_state`` starts a port Sequencer from such a state and
 ``sequencer_state`` reads one back, so a test can run both packages from
@@ -23,6 +28,7 @@ the same window and map and compare them field by field.
 from __future__ import annotations
 
 import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -31,6 +37,8 @@ from mimosa_tpu_torch.graph.window import Window
 from mimosa_tpu_torch.imu.preintegration import PreintState
 from mimosa_tpu_torch.lidar.photometric import Features
 from mimosa_tpu_torch.mapping.voxel_hash import VoxelMap
+from mimosa_tpu_torch.odometry.factor import OdometryConfig
+from mimosa_tpu_torch.radar.factor import RadarConfig
 
 # device-resident sequencer fields besides the three state tuples
 SEQ_ARRAYS = ("fv", "kf_q", "kf_p", "kf_count", "traj_q", "traj_p",
@@ -38,6 +46,10 @@ SEQ_ARRAYS = ("fv", "kf_q", "kf_p", "kf_count", "traj_q", "traj_p",
 # host bookkeeping that must travel with the device state
 SEQ_HOST = ("n_active", "initialized", "scan_idx", "last_state_ts",
             "state_ts", "counters", "_traj_ts", "_traj_src")
+# host state of the radar and odometry streams, carried where set: absent
+# from a state (a JAX Sequencer sets them lazily) means None
+SEQ_HOST_SENSORS = ("radar_cfg", "odom_cfg", "_odom_prev")
+_SENSOR_CFGS = dict(radar_cfg=RadarConfig, odom_cfg=OdometryConfig)
 _TUPLES = (("window", Window), ("vmap", VoxelMap), ("preints", PreintState))
 
 
@@ -67,11 +79,42 @@ def tuple_from_numpy(cls, arrs, device=None, dtype=torch.float32):
                   for k in cls._fields})
 
 
+def sensor_host(seq) -> dict:
+    """The set ``SEQ_HOST_SENSORS`` fields of a Sequencer (either
+    package's) as plain Python values."""
+    out = {}
+    for k in SEQ_HOST_SENSORS:
+        v = getattr(seq, k, None)
+        if v is None:
+            continue
+        if k == "_odom_prev":
+            v = dict(slot=int(v["slot"]),
+                     q=tuple(float(x) for x in np.asarray(v["q"])),
+                     t=tuple(float(x) for x in np.asarray(v["t"])))
+        else:
+            v = dataclasses.asdict(v)
+        out[k] = v
+    return out
+
+
+def _load_sensor_host(seq, host: dict):
+    for k in SEQ_HOST_SENSORS:
+        v = host.get(k)
+        if v is not None and k == "_odom_prev":
+            v = dict(slot=int(v["slot"]), q=np.asarray(v["q"], float),
+                     t=np.asarray(v["t"], float))
+        elif v is not None:
+            v = _SENSOR_CFGS[k](**(v if isinstance(v, dict)
+                                   else dataclasses.asdict(v)))
+        setattr(seq, k, v)
+
+
 def sequencer_state(seq) -> dict:
     """The port Sequencer's full state as numpy + plain Python values."""
     state = {name: to_numpy(getattr(seq, name)) for name, _ in _TUPLES}
     state.update({name: to_numpy(getattr(seq, name)) for name in SEQ_ARRAYS})
     state["host"] = {k: copy.deepcopy(getattr(seq, k)) for k in SEQ_HOST}
+    state["host"].update(sensor_host(seq))
     state["imu"] = dict(ts=seq.imu.ts.copy(), acc=seq.imu.acc.copy(),
                         gyro=seq.imu.gyro.copy())
     if seq.features is not None:
@@ -102,6 +145,7 @@ def load_sequencer_state(seq, state: dict):
         setattr(seq, name, from_numpy(state[name], dev, dt))
     for k in SEQ_HOST:
         setattr(seq, k, copy.deepcopy(state["host"][k]))
+    _load_sensor_host(seq, state["host"])
     imu = state["imu"]
     seq.imu.load(imu["ts"], imu["acc"], imu["gyro"])
     return seq

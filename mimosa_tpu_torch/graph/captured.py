@@ -2,9 +2,10 @@
 
 The torch counterpart of the JAX package's "one XLA program per scan"
 (``jax.jit`` of ``_scan_step``). A step variant is a function of the
-Sequencer's device state and its inputs (the staged scan and the IMU pack)
-with static shapes that never reads back to the host, so its kernels can
-be recorded once and replayed:
+Sequencer's device state and its inputs (a staged scan, IMU segments, a
+radar or odometry pack, each with a scalar row of slots and indices) with
+static shapes that never reads back to the host, so its kernels can be
+recorded once and replayed:
 
 * the first time a variant runs it runs eagerly on a side stream (the
   warm-up ``torch.cuda.graphs`` asks for: cuBLAS / cuSOLVER handles and

@@ -1,8 +1,9 @@
-"""Deterministic measurement sequencer — the LiDAR-inertial slice.
+"""Deterministic measurement sequencer: the four-modality streaming
+estimator (LiDAR, radar Doppler, external odometry, IMU).
 
-Port of the streaming LiDAR path of ``mimosa_tpu/graph/sequencer.py``:
-a host event loop (IMU buffering, initialization, same-key collapse,
-window sliding) feeding device step functions on torch tensors:
+Port of the streaming paths of ``mimosa_tpu/graph/sequencer.py``: a host
+event loop (IMU buffering, initialization, same-key collapse, out-of-order
+insertion, window sliding) feeding device step functions on torch tensors:
 
 * ``_scan_step``: decode -> deskew -> preintegrate + append -> voxel
   downsample -> correspondence match -> ``n_gn_iters`` Gauss-Newton
@@ -13,9 +14,20 @@ window sliding) feeding device step functions on torch tensors:
   same step. With ``photo_cfg`` (PG-LIO, ``lidar/photometric.py``) the
   scan also builds an intensity frame, the photometric patch factor joins
   every GN iteration and the absorb, and the feature store is tracked and
-  topped up at the converged pose;
+  topped up at the converged pose. ``append=False`` attaches the scan to
+  an existing state (same key, in order or late);
+* ``_scan_ooo_step``: a late scan's state inserted mid-window, the two IMU
+  segments around it re-integrated, then the scan step's GN (the ICP
+  kernel), absorb and keyframe-gated map update on the inserted slot;
+* ``_radar_step``: the Doppler factor (``radar/factor.py``) on a declared,
+  newest, neighbouring or inserted state;
+* ``_odom_step``: the odometry between factor (``odometry/factor.py``)
+  from the previous message's state to a declared or the newest state;
+* ``_declare_step``: a state from the IMU alone (an odometry anchor);
 * ``_marginalize``: Schur-complement slide of the window;
-* ``_init_lidar_step``: state setup + first-scan map seed.
+* ``_init_lidar_step`` / ``_init_inertial_step``: state setup, with the
+  first-scan map seed, or from the IMU alone for a radar or odometry
+  sensor with ``use_to_init``.
 
 Scans travel to the device in one of three codecs, as in the JAX package:
 int16 xyz with a subtractive per-lane dither (the default), int16
@@ -23,19 +35,20 @@ range-image rows decoded against a resident beam table
 (``range_transfer``), or plain f32. The int16 packs come from the port's
 C++ pack (``mimosa_tpu_torch/native``).
 
-The step reads nothing back to the host: counts, slots and indices stay
+The steps read nothing back to the host: counts, slots and indices stay
 0-d device tensors, inputs go up through pinned memory without a sync, and
 the trajectory / debug logs are device rings read once at the end. On the
 card each step variant is captured once as a CUDA graph and replayed
 (``graph/captured.py``); ``eager=True`` runs it op by op instead.
 
 Not ported yet (the constructor refuses these settings): rescue, rematch
-and frozen-map localization. Nor are radar, odometry, out-of-order scan
-insertion and the bulk scheduler.
+and frozen-map localization. Nor is the bulk scheduler (``add_bulk``,
+``add_scans_bulk``).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
 import logging
@@ -55,7 +68,9 @@ from mimosa_tpu_torch.lidar import geometric as geo
 from mimosa_tpu_torch.lidar import photometric as ph
 from mimosa_tpu_torch.lidar.downsample import voxel_downsample
 from mimosa_tpu_torch.mapping import voxel_hash as vh
+from mimosa_tpu_torch.odometry import factor as odo
 from mimosa_tpu_torch.ops import icp_cuda
+from mimosa_tpu_torch.radar import factor as rad
 from mimosa_tpu_torch.utils.timing import StageTimer
 
 logger = logging.getLogger("mimosa_tpu_torch.sequencer")
@@ -573,6 +588,292 @@ def _marginalize_step(state, *, win_cfg):
     return (window, vmap, preints, fv, *logs)
 
 
+# ------------------------------------------- declares, insertions, radar,
+# odometry and out-of-order scans
+#
+# IMU segments travel as [m, 8] rows (acc3, gyro3, dt, valid), m =
+# max_imu_per_segment; an insertion takes the two segments around the new
+# state stacked as [2m, 8]. Slots, positions and trajectory rows travel as
+# floats in a scalar row and become 0-d device indices, so one captured
+# graph serves every slot.
+
+def _segment(imu):
+    """(accs, gyros, dts, valid) of IMU rows [m, 8]."""
+    return imu[:, 0:3], imu[:, 3:6], imu[:, 6], imu[:, 7] > 0.5
+
+
+def _declare_core(window, preints, fv, accs, gyros, dts, seg_valid,
+                  n_active, *, seq_cfg):
+    """Preintegrate the segment last -> new at the last state's biases,
+    predict and append the new state (with ``ts = 0``, as the JAX package
+    does). Returns (window, preints, fv, slot of the new state)."""
+    last = n_active - 1
+    bg, ba = _row(window.bg, last), _row(window.ba, last)
+    seg = pre.preintegrate(accs, gyros, dts, bg, ba, seq_cfg.acc_var,
+                           seq_cfg.gyro_var, int_var=seq_cfg.int_var,
+                           valid=seg_valid)
+    preints = _set_segment(preints, last, seg)
+    fv = fv.index_fill(0, last.reshape(1), True)
+    qn, pn, vn = pre.predict(seg, _row(window.q, last), _row(window.p, last),
+                             _row(window.v, last),
+                             window.g_dir * seq_cfg.g_mag)
+    window = win.append_state(window, qn, pn, vn, bg, ba, 0.0)
+    return window, preints, fv, n_active
+
+
+def _declare_step(state, imu_f, *, seq_cfg):
+    """A state declared from the IMU alone (no factor), on the whole
+    state: ``imu_f`` [m+1, 8] is the segment and a scalar row [n_active]."""
+    window, vmap, preints, fv, *rest = state
+    window, preints, fv, _ = _declare_core(
+        window, preints, fv, *_segment(imu_f[:-1]),
+        imu_f[-1, 0].to(torch.int64), seq_cfg=seq_cfg)
+    return (window, vmap, preints, fv, *rest)
+
+
+def _insert_preint_segments(preints, fv, pos, seg_a, seg_b):
+    """After inserting a state at slot ``pos``: segment pos-1 becomes
+    (prev -> new), segment pos becomes (new -> next), later segments shift
+    right by one."""
+    k1 = fv.shape[0]
+    j = torch.arange(k1, device=fv.device)
+    take = torch.where(j < pos, j, j - 1)
+
+    def shift(a, new_a, new_b):
+        shape = (k1,) + (1,) * (a.ndim - 1)
+        return torch.where((j == pos - 1).reshape(shape), new_a,
+                           torch.where((j == pos).reshape(shape), new_b,
+                                       a.index_select(0, take)))
+
+    preints = pre.PreintState(*[shift(a, na, nb) for a, na, nb
+                                in zip(preints, seg_a, seg_b)])
+    true = torch.ones_like(fv[0])
+    return preints, shift(fv, true, true)
+
+
+def _insert_ooo_state(window, preints, fv, imu_ab, pos, *, seq_cfg,
+                      win_cfg):
+    """A late measurement's state inserted at slot ``pos``: segment A
+    (prev -> new) and segment B (new -> next) are integrated at the
+    previous state's biases (``imu_ab`` [2m, 8] stacks them), the new state
+    is predicted from the previous one over A and inserted (``ts = 0``),
+    and the IMU chain re-placed around it."""
+    m = seq_cfg.max_imu_per_segment
+    prev = pos - 1
+    bg, ba = _row(window.bg, prev), _row(window.ba, prev)
+
+    def integrate(imu):
+        accs, gyros, dts, valid = _segment(imu)
+        return pre.preintegrate(accs, gyros, dts, bg, ba, seq_cfg.acc_var,
+                                seq_cfg.gyro_var, int_var=seq_cfg.int_var,
+                                valid=valid)
+
+    seg_a, seg_b = integrate(imu_ab[:m]), integrate(imu_ab[m:])
+    qn, pn, vn = pre.predict(seg_a, _row(window.q, prev), _row(window.p, prev),
+                             _row(window.v, prev),
+                             window.g_dir * seq_cfg.g_mag)
+    window = win.insert_state_at(window, pos, qn, pn, vn, bg, ba, 0.0,
+                                 win_cfg)
+    preints, fv = _insert_preint_segments(preints, fv, pos, seg_a, seg_b)
+    return window, preints, fv
+
+
+def _gn_absorb(window, preints, fv, idx, lin, *, win_cfg):
+    """Two GN iterations with the live factor block ``lin(window)`` ->
+    (H, b) on tangent indices ``idx``, then the block absorbed into the
+    prior at the converged values: the radar and odometry one-step factor.
+    ``build_system`` takes no IMU cache here, so each iteration linearizes
+    the IMU chain afresh, as the JAX package's radar and odometry steps
+    do."""
+    for _ in range(2):
+        Hm, bm = lin(window)
+        H, rhs = win.build_system(window, preints, fv, win_cfg,
+                                  meas=[(idx, Hm, bm)])
+        window = win.apply_update(window, win.solve(H, rhs), win_cfg)
+    Hm, bm = lin(window)
+    window = win.rebase_prior(window, win_cfg)
+    return win.add_measurement_block(window, idx, Hm, bm, win_cfg)
+
+
+# radar pack: Sequencer.RADAR_BULK_PAD target rows (x, y, z in the radar
+# frame, NaN where no target; doppler; snr_db, -1e9 where no target) and a
+# scalar row [slot, omega (3), traj_idx]
+
+
+def _radar_step(state, *inputs, mode, seq_cfg, win_cfg, radar_cfg):
+    """The radar Doppler factor on the whole state. ``inputs`` end with the
+    radar pack; its scalar row's slot is the state the factor acts on, and
+    ``mode`` says how that state came to be:
+
+    * ``"declare"`` (inputs: IMU segment [m, 8], pack): a new state from the
+      IMU at ``slot`` (= the active count), then the factor on it and its
+      trajectory row;
+    * ``"attach"`` (pack): the newest state (fewer than
+      ``min_imu_between_states`` IMU samples since it), and a trajectory
+      row;
+    * ``"samekey"`` (pack): an existing state next to a late frame, no row;
+    * ``"ooo"`` (segments [2m, 8], pack): a state inserted at ``slot`` for
+      a late frame (:func:`_insert_ooo_state`), no row.
+
+    The omega of the lever arm is the mean gyro over the frame's exposure;
+    the GN is :func:`_gn_absorb` on the [dR, dv, dbg] keys."""
+    window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p, \
+        *rest = state
+    *imu, rpack = inputs
+    scal, tgt = rpack[-1], rpack[:-1]
+    slot = scal[0].to(torch.int64)
+    if mode == "declare":
+        window, preints, fv, _ = _declare_core(
+            window, preints, fv, *_segment(imu[0]), slot, seq_cfg=seq_cfg)
+    elif mode == "ooo":
+        window, preints, fv = _insert_ooo_state(
+            window, preints, fv, imu[0], slot, seq_cfg=seq_cfg,
+            win_cfg=win_cfg)
+    dirs, _, valid = rad.filter_targets(tgt[:, 0:3], tgt[:, 4], radar_cfg)
+    omega, doppler = scal[1:4], tgt[:, 3]
+
+    def lin(w):
+        res = rad.linearize(_row(w.q, slot), _row(w.v, slot),
+                            _row(w.bg, slot), omega, dirs, doppler, valid,
+                            radar_cfg)
+        return res.H, res.b
+
+    window = _gn_absorb(window, preints, fv, win.rot_vel_bg_idx(slot), lin,
+                        win_cfg=win_cfg)
+    if mode in ("declare", "attach"):
+        traj_idx = scal[4].to(torch.int64)
+        traj_q = _put_row(traj_q, traj_idx, _row(window.q, slot))
+        traj_p = _put_row(traj_p, traj_idx, _row(window.p, slot))
+    return (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
+            *rest)
+
+
+def _odom_step(state, *inputs, declare, seq_cfg, win_cfg, odom_cfg):
+    """The external-odometry between factor on the whole state, from the
+    state of the previous message to ``slot``, and ``slot``'s trajectory
+    row. ``inputs`` end with the odometry pack [3, 7]: row 0 [slot,
+    prev_slot, traj_idx], rows 1 and 2 the previous and current sensor
+    poses (q wxyz, t); with ``declare`` an IMU segment [m, 8] comes first
+    and ``slot`` is a new state declared from it."""
+    window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p, \
+        *rest = state
+    *imu, opack = inputs
+    slot, prev_slot, traj_idx = opack[0, 0:3].to(torch.int64).unbind()
+    q_meas, t_meas = odo.relative_measurement(
+        opack[1, 0:4], opack[1, 4:7], opack[2, 0:4], opack[2, 4:7], odom_cfg)
+    if declare:
+        window, preints, fv, _ = _declare_core(
+            window, preints, fv, *_segment(imu[0]), slot, seq_cfg=seq_cfg)
+
+    def lin(w):
+        res = odo.linearize(_row(w.q, prev_slot), _row(w.p, prev_slot),
+                            _row(w.q, slot), _row(w.p, slot), q_meas, t_meas,
+                            odom_cfg)
+        return res.H, res.b
+
+    window = _gn_absorb(window, preints, fv,
+                        win.between_pose_idx(prev_slot, slot), lin,
+                        win_cfg=win_cfg)
+    traj_q = _put_row(traj_q, traj_idx, _row(window.q, slot))
+    traj_p = _put_row(traj_p, traj_idx, _row(window.p, slot))
+    return (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
+            *rest)
+
+
+def _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
+                   kf_q, kf_p, kf_count, debug_rec, q_bl, t_bl,
+                   ray_dirs=None, dither=None,
+                   *, seq_cfg, win_cfg, map_cfg, geo_cfg):
+    """A late scan's state inserted mid-window and defined by the scan:
+    insert at ``pos`` with the two IMU segments re-integrated
+    (:func:`_insert_ooo_state`), deskew over segment A from the previous
+    state, ``n_gn_iters`` GN iterations with live ICP relinearization (the
+    kernel) on the inserted slot, absorb, then the keyframe-gated map
+    update at the refined pose. ``imu_f`` [2m+1, 8]: segments A and B and a
+    scalar row [pos, t_end_rel, -, scan_idx, t_offset]. No trajectory row
+    (the scan is older than the trajectory head) and no photometric
+    factor, as in the JAX package; the debug row holds the inlier count
+    only. Points timestamped before the previous state clamp to its pose
+    in the deskew."""
+    d = window.p.dtype
+    m = seq_cfg.max_imu_per_segment
+    scalars = imu_f[-1]
+    pos = scalars[0].to(torch.int64)
+    t_end = scalars[1]
+    scan_idx = scalars[3].to(torch.int32)
+    pts, t_pts, _, pt_valid = _decode_scan(
+        scan_f, pt_valid, scalars[4], seq_cfg, d, ray_dirs, dither)
+    window, preints, fv = _insert_ooo_state(
+        window, preints, fv, imu_f[:2 * m], pos, seq_cfg=seq_cfg,
+        win_cfg=win_cfg)
+
+    # deskew from the previous state (its slot is below pos, unmoved)
+    prev = pos - 1
+    accs, gyros, dts, _ = _segment(imu_f[:m])
+    imu_ts = torch.cat([torch.zeros_like(dts[:1]), torch.cumsum(dts, 0)[:-1]])
+    dsk = dk.deskew(pts, t_pts, pt_valid, _row(window.q, prev),
+                    _row(window.p, prev), _row(window.v, prev), accs, gyros,
+                    imu_ts, _row(window.bg, prev), _row(window.ba, prev),
+                    window.g_dir * seq_cfg.g_mag, q_bl, t_bl, t_end)
+
+    pts_b = lie.se3_transform(q_bl, t_bl, dsk.points_le)
+    geo_in = pt_valid
+    if seq_cfg.geo_skip > 1:
+        lanes = torch.arange(pts_b.shape[0], device=pts_b.device)
+        geo_in = pt_valid & (lanes % seq_cfg.geo_skip == 0)
+    pts_geo, geo_valid, _ = voxel_downsample(
+        pts_b, geo_in, seq_cfg.geo_leaf, seq_cfg.n_geo_points)
+
+    def pose():
+        return _row(window.q, pos), _row(window.p, pos)
+
+    def geo_meas(icp_):
+        if not geo_cfg.project_degenerate:
+            return icp_.H, icp_.b
+        Pp = geo.degeneracy_projector(icp_)
+        return Pp @ icp_.H @ Pp.T, Pp @ icp_.b
+
+    matches = geo.match(vmap, pts_geo, *pose(), map_cfg)
+
+    def lin_iter():
+        return icp_cuda.linearize(matches, pts_geo, geo_valid, *pose(),
+                                  geo_cfg, g_dir=window.g_dir)
+
+    imu_cache = win.imu_factor_cache(window, preints, win_cfg)
+    pidx = win.pose_idx(pos)
+    for _ in range(seq_cfg.n_gn_iters):
+        icp = lin_iter()
+        H, rhs = win.build_system(window, preints, fv, win_cfg,
+                                  meas=[(pidx, *geo_meas(icp))],
+                                  imu_cache=imu_cache)
+        window = win.apply_update(window, win.solve(H, rhs), win_cfg)
+    icp = lin_iter()
+    window = win.rebase_prior(window, win_cfg)
+    window = win.add_measurement_block(window, pidx, *geo_meas(icp), win_cfg)
+
+    vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
+        vmap, *pose(), dsk.points_le, geo_in, kf_q, kf_p, kf_count,
+        scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
+    rec = torch.cat([icp.num_inlier.to(d).reshape(1),
+                     torch.zeros(DBG_W - 1, dtype=d, device=pts.device)])
+    debug_rec = _put_row(debug_rec, scan_idx.to(torch.int64), rec)
+    return window, vmap, preints, fv, debug_rec, kf_q, kf_p, kf_count
+
+
+def _scan_ooo_state_step(state, scan_f, pt_valid, imu_f, *, resident, **kw):
+    """:func:`_scan_ooo_step` on the Sequencer's whole state; the
+    trajectory rings and a photometric feature store pass through."""
+    (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
+     debug_rec, *features) = state
+    q_bl, t_bl, ray_dirs, dither, _ = resident
+    window, vmap, preints, fv, debug_rec, kf_q, kf_p, kf_count = \
+        _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
+                       kf_q, kf_p, kf_count, debug_rec, q_bl, t_bl, ray_dirs,
+                       dither, **kw)
+    return (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
+            debug_rec, *features)
+
+
 # ---------------------------------------------------------------------------
 # host orchestrator
 # ---------------------------------------------------------------------------
@@ -663,6 +964,10 @@ class Sequencer:
         self.debug_rec = torch.zeros((S, DBG_W), **f)
         self._traj_ts = []           # host: timestamps, index = ring row
         self._traj_src = []          # host: scan_idx per row (-1 = no scan)
+        # the radar and odometry configurations (set by the first frame or
+        # message) and the odometry anchor: the previous message's slot
+        # and sensor pose
+        self.radar_cfg = self.odom_cfg = self._odom_prev = None
         self.timers = StageTimer()
         self._step_kw = dict(seq_cfg=seq_cfg, win_cfg=win_cfg,
                              map_cfg=map_cfg, geo_cfg=geo_cfg)
@@ -715,9 +1020,11 @@ class Sequencer:
         return tuple(getattr(self, k) for k in self._state_names)
 
     def _run(self, key, inputs=()):
-        """Run step variant ``key`` (("scan", marginalize_first, append) or
-        ("marginalize",)) on the Sequencer's state: replayed from its CUDA
-        graph on the card, eagerly on the CPU or with ``eager=True``."""
+        """Run step variant ``key`` on the Sequencer's state: ("scan",
+        marginalize_first, append), ("marginalize",), ("declare",),
+        ("scan_ooo",), ("radar", mode, radar_cfg) or ("odom", declare,
+        odom_cfg). Replayed from its CUDA graph on the card, eagerly on the
+        CPU or with ``eager=True``."""
         fn = self._steps.get(key)
         if fn is None:
             fn = self._steps[key] = self._step_fn(key)
@@ -732,13 +1039,26 @@ class Sequencer:
         """The variant's function of (state, *inputs). It holds the
         resident tensors it needs, not the Sequencer (no reference cycle:
         a Sequencer is freed when its last reference goes)."""
-        if key[0] == "marginalize":
+        kind = key[0]
+        cfgs = dict(seq_cfg=self.cfg, win_cfg=self.win_cfg)
+        resident = (self.q_bl, self.t_bl, self._ray_dirs_dev,
+                    self._dither_dev, self._static_mask)
+        if kind == "marginalize":
             return functools.partial(_marginalize_step, win_cfg=self.win_cfg)
+        if kind == "declare":
+            return functools.partial(_declare_step, seq_cfg=self.cfg)
+        if kind == "radar":
+            return functools.partial(_radar_step, mode=key[1],
+                                     radar_cfg=key[2], **cfgs)
+        if kind == "odom":
+            return functools.partial(_odom_step, declare=key[1],
+                                     odom_cfg=key[2], **cfgs)
+        if kind == "scan_ooo":
+            return functools.partial(_scan_ooo_state_step, resident=resident,
+                                     **self._step_kw)
         _, marginalize_first, append = key
         return functools.partial(
-            _scan_state_step, resident=(self.q_bl, self.t_bl,
-                                        self._ray_dirs_dev, self._dither_dev,
-                                        self._static_mask),
+            _scan_state_step, resident=resident,
             marginalize_first=marginalize_first, append=append,
             photo_cfg=self.photo_cfg, **self._step_kw)
 
@@ -901,6 +1221,208 @@ class Sequencer:
         """Bulk time-ordered IMU insert (one vectorized pass)."""
         self.imu.add_batch(ts, acc, gyro)
 
+    # ---------------------------------------------------------------- radar
+    RADAR_BULK_PAD = 512              # target rows a frame
+
+    def _imu_rows(self, t0, t1):
+        """The IMU segment [t0, t1] as [m, 8] rows (acc3, gyro3, dt,
+        valid), m = max_imu_per_segment."""
+        out = np.zeros((self.cfg.max_imu_per_segment, 8))
+        self.imu.segment_into(t0, t1, out)
+        return out
+
+    def add_radar(self, ts, points_r, doppler, snr_db=None,
+                  radar_cfg=None):
+        """Radar frame: the one-step Doppler factor (declared and defined
+        in one step). ``points_r`` [N,3] targets in the radar frame,
+        ``doppler`` [N] radial speeds, ``snr_db`` [N]; at most
+        ``RADAR_BULK_PAD`` targets are kept. Declares a new state when at
+        least ``min_imu_between_states`` IMU samples arrived since the
+        newest state, else attaches to the newest state; a frame older than
+        the newest state goes to :meth:`_radar_ooo`. Each in-order frame
+        logs a trajectory row, declaring or not."""
+        rcfg = radar_cfg or self.radar_cfg or rad.RadarConfig()
+        self.radar_cfg = rcfg
+        self.counters.setdefault("radar_frames", 0)
+        self.counters.setdefault("radar_dropped", 0)
+        self.counters["radar_frames"] += 1
+        self._ensure_log_capacity()
+        ts = float(ts)
+        if not self.initialized:
+            if rcfg.use_to_init:
+                self._try_initialize_inertial(ts)
+            if not self.initialized:
+                self.counters["radar_dropped"] += 1
+                return
+        if not self.imu.covers(min(self.last_state_ts, ts), ts):
+            self.counters["radar_dropped"] += 1
+            return
+
+        # NaN targets and an SNR of -1e9 pad the frame; filter_targets
+        # drops them on the device
+        n_pad = self.RADAR_BULK_PAD
+        rpack = np.zeros((n_pad + 1, 5))
+        rpack[:n_pad, 0:3] = np.nan
+        rpack[:n_pad, 4] = -1e9
+        k = min(len(points_r), n_pad)
+        rpack[:k, 0:3] = np.asarray(points_r)[:k]
+        rpack[:k, 3] = np.asarray(doppler)[:k]
+        rpack[:k, 4] = (np.asarray(snr_db)[:k] if snr_db is not None
+                        else 1e9)
+        # the lever arm's omega: the mean gyro over the 20 ms exposure
+        _, rpack[n_pad, 1:4] = self.imu.mean_measurements(
+            max(ts - 0.02, self.imu.t_first), ts)
+
+        if ts <= self.last_state_ts:
+            self._radar_ooo(ts, rpack, rcfg)
+            return
+
+        declare = self.imu.count_between(self.last_state_ts, ts) >= \
+            self.cfg.min_imu_between_states
+        if declare:
+            self._enforce_lag(ts)
+        if declare and self.n_active == self.win_cfg.K:
+            self._marginalize_host()
+        rpack[n_pad, 0] = self.n_active if declare else self.n_active - 1
+        rpack[n_pad, 4] = len(self._traj_ts)
+        if declare:
+            self._run(("radar", "declare", rcfg),
+                      (self._put(self._imu_rows(self.last_state_ts, ts)),
+                       self._put(rpack)))
+            self.n_active += 1
+            self.last_state_ts = ts
+            self.state_ts.append(ts)
+        else:
+            self._run(("radar", "attach", rcfg), (self._put(rpack),))
+        self._traj_ts.append(ts)
+        self._traj_src.append(-1)
+
+    def _radar_ooo(self, ts, rpack, rcfg):
+        """A radar frame older than the newest state: collapsed onto the
+        neighbouring state when fewer than ``min_imu_between_states`` IMU
+        samples separate them, else a state inserted mid-window with the
+        IMU segments around it re-integrated; dropped when older than
+        ``max_measurement_latency`` or than the oldest state."""
+        self.counters.setdefault("radar_ooo_samekey", 0)
+        self.counters.setdefault("radar_ooo_inserted", 0)
+        self.counters.setdefault("radar_ooo_dropped", 0)
+        if self.last_state_ts - ts > self.cfg.max_measurement_latency or \
+                ts <= self.state_ts[0] or self.n_active < 2:
+            self.counters["radar_ooo_dropped"] += 1
+            return
+        pos = bisect.bisect_left(self.state_ts, ts)   # insert index
+        prev_ts, next_ts = self.state_ts[pos - 1], self.state_ts[pos]
+        min_imu = self.cfg.min_imu_between_states
+        near_prev = self.imu.count_between(prev_ts, ts) < min_imu
+        near_next = self.imu.count_between(ts, next_ts) < min_imu
+        n_pad = self.RADAR_BULK_PAD
+        if near_prev or near_next:
+            rpack[n_pad, 0] = pos - 1 if near_prev else pos
+            self._run(("radar", "samekey", rcfg), (self._put(rpack),))
+            self.counters["radar_ooo_samekey"] += 1
+            return
+        if self.n_active == self.win_cfg.K:
+            self._marginalize_host()
+            pos -= 1
+            if pos < 1:
+                self.counters["radar_ooo_dropped"] += 1
+                return
+            prev_ts = self.state_ts[pos - 1]
+        rpack[n_pad, 0] = pos
+        imu_ab = np.concatenate([self._imu_rows(prev_ts, ts),
+                                 self._imu_rows(ts, next_ts)])
+        self._run(("radar", "ooo", rcfg),
+                  (self._put(imu_ab), self._put(rpack)))
+        self._inserted(pos, ts)
+        self.counters["radar_ooo_inserted"] += 1
+
+    def _inserted(self, pos, ts):
+        """Host bookkeeping of a state inserted at slot ``pos``."""
+        self.n_active += 1
+        self.state_ts.insert(pos, ts)
+        prev = self._odom_prev
+        if prev is not None and prev["slot"] >= pos:
+            prev["slot"] += 1
+
+    # ------------------------------------------------------------- odometry
+    def add_odometry(self, ts, q_s, t_s, cov6=None, odom_cfg=None):
+        """External odometry pose (sensor frame, q wxyz): a relative-pose
+        between factor from the previous message's state to this one's,
+        dropped when the covariance's D-optimality exceeds
+        ``max_d_optimality``. The first message (or one whose anchor state
+        left the window) only anchors. Each message that makes a factor
+        logs a trajectory row, declaring or not."""
+        ocfg = odom_cfg or self.odom_cfg or odo.OdometryConfig()
+        self.odom_cfg = ocfg
+        self.counters.setdefault("odom_msgs", 0)
+        self.counters.setdefault("odom_dropped", 0)
+        self.counters["odom_msgs"] += 1
+        self._ensure_log_capacity()
+        ts = float(ts)
+        if cov6 is not None and odo.d_optimality(np.asarray(cov6)) > \
+                ocfg.max_d_optimality:
+            self.counters["odom_dropped"] += 1
+            return
+        if not self.initialized and ocfg.use_to_init:
+            self._try_initialize_inertial(ts)
+        if not self.initialized or ts <= self.last_state_ts or \
+                not self.imu.covers(self.last_state_ts, ts):
+            self.counters["odom_dropped"] += 1
+            return
+        declare = self.imu.count_between(self.last_state_ts, ts) >= \
+            self.cfg.min_imu_between_states
+        anchor = dict(q=np.asarray(q_s), t=np.asarray(t_s))
+        if self._odom_prev is None or self._odom_prev["slot"] < 0:
+            # anchor only: the first message, or the previous anchor state
+            # was marginalized out of the window
+            self.counters["odom_anchor"] = \
+                self.counters.get("odom_anchor", 0) + 1
+            if declare:
+                self._enforce_lag(ts)
+                if self.n_active == self.win_cfg.K:
+                    self._marginalize_host()
+                self._declare_plain(ts)
+            self._odom_prev = dict(slot=self.n_active - 1, **anchor)
+            return
+        if declare:
+            self._enforce_lag(ts)
+        if declare and self.n_active == self.win_cfg.K:
+            self._marginalize_host()
+        prev = self._odom_prev      # its slot may have shifted
+        if prev["slot"] < 0:
+            self.counters["odom_anchor"] = \
+                self.counters.get("odom_anchor", 0) + 1
+            self._odom_prev = dict(slot=self.n_active - 1, **anchor)
+            return
+        opack = np.zeros((3, 7))
+        opack[0, 0:3] = [self.n_active if declare else self.n_active - 1,
+                         prev["slot"], len(self._traj_ts)]
+        opack[1] = np.concatenate([prev["q"], prev["t"]])
+        opack[2] = np.concatenate([anchor["q"], anchor["t"]])
+        inputs = (self._put(opack),)
+        if declare:
+            inputs = (self._put(self._imu_rows(self.last_state_ts, ts)),) \
+                + inputs
+        self._run(("odom", declare, ocfg), inputs)
+        if declare:
+            self.n_active += 1
+            self.last_state_ts = ts
+            self.state_ts.append(ts)
+        self._odom_prev = dict(slot=self.n_active - 1, **anchor)
+        self._traj_ts.append(ts)
+        self._traj_src.append(-1)
+
+    def _declare_plain(self, ts):
+        """Declare a new state from the IMU alone (no measurement factor,
+        no trajectory row)."""
+        imu_f = np.zeros((self.cfg.max_imu_per_segment + 1, 8))
+        self.imu.segment_into(self.last_state_ts, ts, imu_f[:-1])
+        imu_f[-1, 0] = self.n_active
+        self._run(("declare",), (self._put(imu_f),))
+        self.n_active += 1
+        self.last_state_ts = ts
+        self.state_ts.append(ts)
+
     # ----------------------------------------------------------------- scan
     def stage_scan(self, ts_header, points, t_rel, valid=None,
                    intensity=None):
@@ -982,10 +1504,7 @@ class Sequencer:
             self._try_initialize(ts_header, t_end, *staged["raw"])
             return
         if t_end <= self.last_state_ts:
-            # out-of-order insertion is not ported yet
-            self.counters["scans_dropped_ooo"] += 1
-            logger.warning("scan at %.4f is older than the newest state "
-                           "%.4f — dropped", t_end, self.last_state_ts)
+            self._scan_ooo(staged)
             return
         if not self.imu.covers(self.last_state_ts, t_end):
             self.counters["scans_no_imu"] += 1
@@ -1008,9 +1527,7 @@ class Sequencer:
         if do_marg and not self.cfg.merge_marginalize:
             self._marginalize_host()
         elif do_marg:
-            self.n_active -= 1
-            if self.state_ts:
-                self.state_ts.pop(0)
+            self._slid()
         if same_key:
             imu_pack[m, :6] = [self.n_active - 1, t_end - base,
                                len(self._traj_ts) - 1, self.scan_idx,
@@ -1050,9 +1567,115 @@ class Sequencer:
 
     def _marginalize_host(self):
         self._run(("marginalize",))
+        self._slid()
+
+    def _slid(self):
+        """Host bookkeeping of a window slide: the slots move down one."""
         self.n_active -= 1
         if self.state_ts:
             self.state_ts.pop(0)
+        if self._odom_prev is not None:
+            self._odom_prev["slot"] -= 1
+
+    @staticmethod
+    def _scan_t_end(sc):
+        """A scan dict's end time: header + the largest finite point time
+        over its valid lanes (``io.synthetic.generate``'s layout)."""
+        t_rel = np.asarray(sc["t_rel"])
+        vd = sc.get("valid")
+        tv = t_rel if vd is None else t_rel[np.asarray(vd, bool)]
+        tm = float(np.max(np.where(np.isfinite(tv), tv, -np.inf))) \
+            if tv.size else 0.0
+        return float(sc["ts_header"] + (tm if np.isfinite(tm) else 0.0))
+
+    def _scan_ooo(self, staged):
+        """A scan older than the newest state (a second LiDAR, transport
+        jitter): collapsed onto the neighbouring state when fewer than
+        ``min_imu_between_states`` IMU samples separate them (the
+        same-key scan step, deskewed from the previous state), else a
+        state inserted mid-window (:func:`_scan_ooo_step`); dropped when
+        older than ``max_measurement_latency`` or than the oldest
+        state."""
+        self.counters.setdefault("scans_ooo_samekey", 0)
+        self.counters.setdefault("scans_ooo_inserted", 0)
+        t_end = staged["t_end"]
+        ts_header = staged["ts_header"]
+        if self.last_state_ts - t_end > self.cfg.max_measurement_latency \
+                or t_end <= self.state_ts[0] or self.n_active < 2:
+            self.counters["scans_dropped_ooo"] += 1
+            logger.warning("scan at %.4f too old (newest state %.4f) — "
+                           "dropped", t_end, self.last_state_ts)
+            return
+        pos = bisect.bisect_left(self.state_ts, t_end)
+        prev_ts, next_ts = self.state_ts[pos - 1], self.state_ts[pos]
+        min_imu = self.cfg.min_imu_between_states
+        near_prev = self.imu.count_between(prev_ts, t_end) < min_imu
+        near_next = self.imu.count_between(t_end, next_ts) < min_imu
+        m = self.cfg.max_imu_per_segment
+        if near_prev or near_next:
+            attach = pos - 1 if near_prev else pos
+            # refresh the attach state's own trajectory row (rows and states
+            # share their declare time); a state with no row (an inserted
+            # one) writes the scratch row
+            attach_ts = self.state_ts[attach]
+            traj_row = self.traj_q.shape[0] - 1
+            for row in range(len(self._traj_ts) - 1, -1, -1):
+                if self._traj_ts[row] == attach_ts:
+                    traj_row = row
+                    break
+            imu_pack = np.zeros((m + 1, 8))
+            self.imu.segment_into(prev_ts, t_end, imu_pack[:m])
+            # scalars[0] is the deskew base, scalars[5] the attach slot
+            imu_pack[m, :6] = [pos - 1, t_end - prev_ts, traj_row,
+                               self.scan_idx, ts_header - prev_ts, attach]
+            self._run(("scan", False, False),
+                      (staged["scan_dev"], staged["valid_dev"],
+                       self._put(imu_pack)))
+            self.scan_idx += 1
+            if traj_row < len(self._traj_src):
+                self._traj_src[traj_row] = self.scan_idx - 1
+            self.counters["scans_ooo_samekey"] += 1
+            return
+        if self.n_active == self.win_cfg.K:
+            self._marginalize_host()
+            pos -= 1
+            if pos < 1:
+                self.counters["scans_dropped_ooo"] += 1
+                return
+            prev_ts, next_ts = self.state_ts[pos - 1], self.state_ts[pos]
+        imu_f = np.zeros((2 * m + 1, 8))
+        self.imu.segment_into(prev_ts, t_end, imu_f[:m])
+        self.imu.segment_into(t_end, next_ts, imu_f[m:2 * m])
+        imu_f[2 * m, :6] = [pos, t_end - prev_ts, self.traj_q.shape[0] - 1,
+                            self.scan_idx, ts_header - prev_ts, 0]
+        self._run(("scan_ooo",), (staged["scan_dev"], staged["valid_dev"],
+                                  self._put(imu_f)))
+        self.scan_idx += 1
+        self._inserted(pos, t_end)
+        self.counters["scans_ooo_inserted"] += 1
+
+    def _try_initialize_inertial(self, ts):
+        """Initialization from a non-LiDAR sensor (``use_to_init``):
+        stationary attitude only; the map is seeded by the first scan's
+        keyframe insert instead."""
+        self.counters["init_attempts"] += 1
+        att = estimate_attitude(self.imu, ts, self.cfg.pose_init_wait_secs,
+                                self.cfg.g_mag,
+                                self.cfg.gravity_aligned_init)
+        if att is None:
+            return
+        put = self._put
+        self.window, self.traj_q, self.traj_p = _init_inertial_step(
+            self.window, self.traj_q, self.traj_p, put(att["q_w_b"]),
+            put(att["g_dir"]), put(att["bg"]), put(att["ba"]),
+            put(np.asarray(ts)), win_cfg=self.win_cfg)
+        self.n_active = 1
+        self.initialized = True
+        self.last_state_ts = ts
+        self.state_ts = [ts]
+        self._traj_ts.append(ts)
+        self._traj_src.append(-1)
+        logger.info("initialized (inertial) at ts=%.4f", ts)
 
     def _try_initialize(self, ts_header, t_end, points, t_abs_rel, valid):
         self.counters["init_attempts"] += 1

@@ -144,6 +144,20 @@ def pose_idx(slot):
     return slot * SD + torch.arange(6, device=dev)
 
 
+def rot_vel_bg_idx(slot):
+    """Tangent indices [dR(3), dv(3), dbg(3)] of a state (the radar Doppler
+    keys); ``slot`` may be a 0-d device tensor."""
+    dev = slot.device if torch.is_tensor(slot) else None
+    a3 = torch.arange(3, device=dev)
+    return slot * SD + torch.cat([a3, 6 + a3, 9 + a3])
+
+
+def between_pose_idx(slot_i, slot_j):
+    """Tangent indices of two states' pose blocks (the odometry between
+    factor)."""
+    return torch.cat([pose_idx(slot_i), pose_idx(slot_j)])
+
+
 def add_block(H, rhs, idx, Hm, bm):
     """H[idx, idx] += Hm and rhs[idx] += bm; duplicate indices accumulate.
     ``idx`` is [m] or a batch [B, m] of index vectors (Hm [B, m, m])."""
@@ -430,3 +444,55 @@ def marginalize_oldest(w: Window, preints: pre.PreintState,
         lin_q=shift(w.lin_q), lin_p=shift(w.lin_p), lin_v=shift(w.lin_v),
         lin_bg=shift(w.lin_bg), lin_ba=shift(w.lin_ba),
     )
+
+
+def insert_state_at(w: Window, pos, q, p, v, bg, ba, ts,
+                    cfg: WindowConfig) -> Window:
+    """Insert a state at slot ``pos`` (a 0-d device tensor, >= 1), shifting
+    slots >= pos right by one. Needs a free slot (the Sequencer
+    marginalizes first when the window is full).
+
+    The out-of-order counterpart of ``append_state``: the window inserts
+    the state and the Sequencer re-integrates the two IMU segments around
+    it. The prior is block-permuted with it; the inserted block's rows and
+    columns are zero (the new state carries no prior). Every field is a
+    gather through a device index vector, so nothing is read back and one
+    captured step serves every position."""
+    K, D = cfg.K, cfg.D
+    dev = w.q.device
+    src = torch.arange(K, device=dev)
+    take = torch.where(src < pos, src, src - 1)   # right shift from pos
+    at_pos = src == pos
+
+    def shift_in(arr, new_val):
+        sel = at_pos.reshape((K,) + (1,) * (arr.ndim - 1))
+        return torch.where(sel, new_val, arr.index_select(0, take))
+
+    # old block b goes to b if b < pos else b + 1; gravity stays
+    tang_new = torch.arange(D, device=dev)
+    blk_new = torch.clamp(tang_new // SD, max=K - 1)
+    off = tang_new - blk_new * SD
+    is_g = tang_new >= K * SD
+    src_blk = torch.where(blk_new < pos, blk_new, blk_new - 1)
+    src_idx = torch.where(is_g, tang_new, src_blk * SD + off)
+    fresh = (~is_g) & (blk_new == pos)
+    zero = torch.zeros((), dtype=w.H_prior.dtype, device=dev)
+    Hp = w.H_prior[src_idx[:, None], src_idx[None, :]]
+    Hp = torch.where(fresh[:, None] | fresh[None, :], zero, Hp)
+    bp = torch.where(fresh, zero, w.b_prior.index_select(0, src_idx))
+
+    return w._replace(
+        q=shift_in(w.q, q), p=shift_in(w.p, p), v=shift_in(w.v, v),
+        bg=shift_in(w.bg, bg), ba=shift_in(w.ba, ba),
+        ts=shift_in(w.ts, ts),
+        active=shift_in(w.active, torch.ones_like(w.active[0])),
+        H_prior=Hp, b_prior=bp,
+        lin_q=shift_in(w.lin_q, q), lin_p=shift_in(w.lin_p, p),
+        lin_v=shift_in(w.lin_v, v), lin_bg=shift_in(w.lin_bg, bg),
+        lin_ba=shift_in(w.lin_ba, ba),
+    )
+
+
+def newest_slot(w: Window):
+    """Index of the newest active slot (a 0-d device tensor)."""
+    return w.active.to(torch.int32).sum() - 1

@@ -58,9 +58,16 @@ class ImuBuffer:
         self._gyro[:n] = np.asarray(gyro, float)
         self._n = n
 
+    def __len__(self):
+        return self._n
+
     @property
     def t_first(self):
         return self._ts[0] if self._n else None
+
+    @property
+    def t_last(self):
+        return self._ts[self._n - 1] if self._n else None
 
     def _grow(self, need):
         while self._cap < need:
@@ -204,6 +211,17 @@ class ImuBuffer:
             out_ts[1:1 + k] = ts_in
             out_ts[k + 1:] = t1
         return n
+
+    def mean_measurements(self, t0: float, t1: float):
+        """Mean (acc, gyro) over [t0, t1], the interpolated end samples
+        included (the gyro over a radar frame's exposure)."""
+        i0 = np.searchsorted(self.ts, t0, "right")
+        i1 = np.searchsorted(self.ts, t1, "left")
+        a0, g0 = self.interpolate(t0)
+        a1, g1 = self.interpolate(t1)
+        accs = np.vstack([a0[None], self.acc[i0:i1], a1[None]])
+        gyros = np.vstack([g0[None], self.gyro[i0:i1], g1[None]])
+        return accs.mean(0), gyros.mean(0)
 
 
 def estimate_attitude(buf: ImuBuffer, t: float, wait_secs: float,

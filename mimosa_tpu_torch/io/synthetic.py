@@ -1,7 +1,8 @@
 """Synthetic LiDAR+IMU dataset generator for end-to-end replays.
 
 Port of ``mimosa_tpu/io/synthetic.py`` (the room and corridor worlds, the
-analytic trajectory, the spinning-LiDAR raycast and the IMU stream) in
+analytic trajectory, the spinning-LiDAR raycast, the IMU stream, and the
+radar Doppler frames and odometry poses of the multi-sensor sequences) in
 numpy f64.
 The JAX package differentiates the trajectory with ``jax.jacfwd``; here the
 derivatives of the sine-of-smoothstep trajectory are written in closed
@@ -243,6 +244,68 @@ def generate(world, tc: TrajectoryConfig, lm: LidarModel, imu_rate=200,
         gt=dict(ts=np.asarray(gt_ts), pos=np.asarray(gt_p),
                 quat=np.asarray(gt_q)),
     )
+
+
+def _quat_mul_np(a, b):
+    """Hamilton product of wxyz quaternions [..., 4]."""
+    w1, x1, y1, z1 = np.moveaxis(a, -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(b, -1, 0)
+    return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], axis=-1)
+
+
+def radar_residuals_np(q_wb, v_w, bg, omega_b, dirs_r, doppler, q_b_r,
+                       t_b_r):
+    """``radar.factor.residuals`` in numpy f64 for one state: e [N] =
+    -(d . v_R) - doppler with v_R = R_BR^T (R_WB^T v_W + (omega - bg) x
+    t_BR)."""
+    v_b = _quat_to_mat_np(np.asarray(q_wb, float)).T @ v_w
+    v_lever = np.cross(omega_b - bg, np.asarray(t_b_r, float))
+    v_r = _quat_to_mat_np(np.asarray(q_b_r, float)).T @ (v_b + v_lever)
+    return -(dirs_r @ v_r) - doppler
+
+
+def generate_radar(traj, tc: TrajectoryConfig, rate=20.0, n_targets=96,
+                   seed=0, noise=0.02, q_b_r=(1.0, 0, 0, 0),
+                   t_b_r=(0.0, 0, 0)):
+    """Radar Doppler frames from the analytic trajectory (static world):
+    random bearings in the radar frame (forward half space), radial speed
+    -(d . v_R) plus noise, ranges uniform in [2, 30] m, SNR 20 dB. The
+    JAX package's generator, draw for draw."""
+    rng = np.random.default_rng(seed + 100)
+    ts = np.arange(tc.t_stationary * 0.5, tc.t_total, 1.0 / rate)
+    qs, vs, ws = traj["quat"](ts), traj["vel"](ts), traj["imu"](ts)[1]
+    frames = []
+    for k, t in enumerate(ts):
+        dirs = rng.normal(size=(n_targets, 3))
+        dirs[:, 0] = np.abs(dirs[:, 0]) + 0.5
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        dop = radar_residuals_np(qs[k], vs[k], np.zeros(3), ws[k], dirs,
+                                 np.zeros(n_targets), q_b_r, t_b_r)
+        dop = dop + rng.normal(size=n_targets) * noise
+        ranges = rng.uniform(2.0, 30.0, size=n_targets)
+        frames.append(dict(ts=float(t), points=dirs * ranges[:, None],
+                           doppler=dop, snr_db=np.full(n_targets, 20.0)))
+    return frames
+
+
+def generate_odometry(traj, tc: TrajectoryConfig, rate=10.0, seed=0,
+                      noise_rot=0.002, noise_trans=0.005):
+    """External odometry poses (identity extrinsics, covariance 1e-4 I)
+    with per-message rotation and translation noise. The JAX package's
+    generator, draw for draw."""
+    rng = np.random.default_rng(seed + 200)
+    ts = np.arange(tc.t_stationary * 0.5, tc.t_total, 1.0 / rate)
+    qs, ps = traj["quat"](ts), traj["pos"](ts)
+    msgs = []
+    for k, t in enumerate(ts):
+        dq = _exp_so3_np(rng.normal(size=3) * noise_rot)
+        msgs.append(dict(ts=float(t), q=_quat_mul_np(qs[k], dq),
+                         t=ps[k] + rng.normal(size=3) * noise_trans,
+                         cov=np.eye(6) * 1e-4))
+    return msgs
 
 
 def ate_rmse(est_ts, est_p, gt_ts, gt_p, align=True):

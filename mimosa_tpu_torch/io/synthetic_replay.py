@@ -51,6 +51,137 @@ def replay(s, data):
     return len(data["scans"])
 
 
+RADAR_DELAY = 0.06       # a late radar frame's delay [s]
+REINJECT_DELAY = 0.15    # a scan delivered again, this late [s]
+
+
+def multimodal_events(data, radar=(), odom=(), *, late_radar=(),
+                      reinject=(), swap=(), duplicate=()):
+    """The measurements of a multi-sensor sequence in arrival order: a list
+    of (arrival time, kind, message) with kind "scan" (a scan dict of
+    ``io.synthetic.generate``), "radar" (a frame of ``generate_radar``) or
+    "odom" (a message of ``generate_odometry``). A measurement arrives at
+    its own time (a scan at its end), except:
+
+    * radar frames with an index in ``late_radar``: ``RADAR_DELAY`` late;
+    * scans with an index in ``reinject``: delivered on time and again,
+      unchanged, ``REINJECT_DELAY`` late (a second receiver's copy);
+    * scans with an index in ``swap``: delivered just after the next scan;
+    * scans with an index in ``duplicate``: followed by a copy 2 ms later
+      (a same-key scan).
+
+    Equal arrival times keep the order scans, radar frames, odometry
+    messages."""
+    ev = []
+    scans = data["scans"]
+    t_ends = [seq.Sequencer._scan_t_end(sc) for sc in scans]
+    for k, sc in enumerate(scans):
+        arrive = t_ends[k + 1] if k in swap else t_ends[k]
+        ev.append((arrive, "scan", sc))
+        if k in reinject:
+            ev.append((t_ends[k] + REINJECT_DELAY, "scan", sc))
+        if k in duplicate:
+            ev.append((arrive + 2e-3, "scan",
+                       dict(sc, ts_header=sc["ts_header"] + 2e-3)))
+    for j, fr in enumerate(radar):
+        ev.append((fr["ts"] + (RADAR_DELAY if j in late_radar else 0.0),
+                   "radar", fr))
+    ev.extend((m["ts"], "odom", m) for m in odom)
+    # equal arrival times keep the order above
+    order = sorted(range(len(ev)), key=lambda i: ev[i][0])
+    return [ev[i] for i in order]
+
+
+def four_modality_stream(tc, lm, n_targets=96):
+    """(data, events) of a LiDAR + radar + odometry + IMU sequence with
+    late and re-ordered arrivals (:func:`multimodal_events`): the scans
+    and IMU of ``generate`` in the room (seed 0, noise-free), 20 Hz radar
+    frames of ``n_targets`` targets and 10 Hz odometry (covariance 1e-4 I)
+    from the same trajectory, and, with n scans:
+
+    * one radar frame in four 60 ms late, alternating between the radar's
+      two phases (frames 1, 6, 9, 14, ...): a frame on an odometry
+      message's time collapses onto that message's state, the other is
+      inserted mid-window;
+    * every sixth scan (5, 11, ...) delivered again 150 ms late (a second
+      receiver): it collapses onto its own state;
+    * scans n/2 - 3 and n/2 + 3 each swapped with the next one: each is
+      inserted mid-window;
+    * scan n/2 followed by a copy 2 ms later (a same-key scan);
+    * two more odometry messages, noise-free, 2 ms after the ends of scans
+      n/2 + 1 and n/2 + 4: they attach to those scans' states (the
+      generators put every other radar frame on an odometry message's
+      time, and the odometry message comes first, so none attaches by
+      itself);
+    * no odometry for 0.35 s after scan 3's end (an outage: its anchor
+      state leaves the window, and the next message anchors afresh).
+
+    Pass ``tc`` with ``t_stationary`` off the LiDAR's 0.1 s grid (e.g.
+    1.23 s) so that the radar and odometry clocks run out of phase with
+    the LiDAR's, as unsynchronized sensors do; on the generators' default
+    (1.2 s) every late scan lands within two IMU samples of a radar
+    frame's state."""
+    data = syn.generate(syn.room_world(), tc, lm, seed=0)
+    traj = syn.make_trajectory(tc)
+    radar = syn.generate_radar(traj, tc, rate=20.0, n_targets=n_targets,
+                               seed=0)
+    odom = syn.generate_odometry(traj, tc, rate=10.0, seed=0)
+    n = len(data["scans"])
+    t_end = [seq.Sequencer._scan_t_end(sc) for sc in data["scans"]]
+    odom = [m for m in odom if not t_end[3] < m["ts"] < t_end[3] + 0.35]
+    for k in (n // 2 + 1, n // 2 + 4):
+        t = np.array([t_end[k] + 2e-3])
+        odom.append(dict(ts=float(t[0]), q=traj["quat"](t)[0],
+                         t=traj["pos"](t)[0], cov=np.eye(6) * 1e-4))
+    events = multimodal_events(
+        data, radar, odom,
+        late_radar={4 * i + 1 + i % 2 for i in range(len(radar))},
+        reinject=set(range(5, n, 6)), swap={n // 2 - 3, n // 2 + 3},
+        duplicate={n // 2})
+    return data, events
+
+
+def feed_event(s, data, event, imu_i=0):
+    """Feed one event of :func:`multimodal_events` to Sequencer ``s``: the
+    IMU samples up to its arrival (+30 ms collection delay) from index
+    ``imu_i`` on, then the measurement. Returns the index of the next IMU
+    sample."""
+    imu = data["imu"]
+    arrive, kind, m = event
+    j = int(np.searchsorted(imu["ts"], arrive + 0.03, "right"))
+    if j > imu_i:
+        s.add_imu_batch(imu["ts"][imu_i:j], imu["acc"][imu_i:j],
+                        imu["gyro"][imu_i:j])
+        imu_i = j
+    if kind == "scan":
+        s.add_scan(m["ts_header"], m["points"], m["t_rel"], m.get("valid"),
+                   intensity=m.get("intensity"))
+    elif kind == "radar":
+        s.add_radar(m["ts"], m["points"], m["doppler"], m["snr_db"])
+    else:
+        s.add_odometry(m["ts"], m["q"], m["t"], m["cov"])
+    return imu_i
+
+
+def dropout_scans(data):
+    """The scan stream of the JAX scoreboard's dropout_ooo row
+    (``scripts/dataset_evaluation.py:190-199``): after the ninth scan each
+    scan drops with probability 0.15 (draws from seed 7), scans 15 and 30
+    are followed by a copy 2 ms later (same key), and from the tenth scan
+    of the stream on every ninth pair of neighbours is swapped."""
+    rng = np.random.default_rng(7)
+    scans = []
+    for k, sc in enumerate(data["scans"]):
+        if k > 8 and rng.random() < 0.15:
+            continue
+        scans.append(sc)
+        if k in (15, 30):
+            scans.append(dict(sc, ts_header=sc["ts_header"] + 2e-3))
+    for k in range(10, len(scans) - 1, 9):
+        scans[k], scans[k + 1] = scans[k + 1], scans[k]
+    return scans
+
+
 def trajectory_ate(s, data):
     tr = s.trajectory
     return syn.ate_rmse(np.asarray([t for t, _, _ in tr]),

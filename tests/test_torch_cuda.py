@@ -1,6 +1,7 @@
 """The port's CUDA ICP kernel against its plain PyTorch version, and the
-scan step captured as CUDA graphs against the same step run op by op, on
-the card.
+steps captured as CUDA graphs against the same steps run op by op, on the
+card: the scan step, the photometric scan step, and every variant of the
+four-modality stream (radar, odometry, late scans and radar frames).
 
 Every test here needs an NVIDIA GPU and nvcc (``cuda`` marker) and skips
 without one (but the native pack's build-failure test, which needs g++
@@ -689,3 +690,113 @@ def test_photometric_frame_and_factor_on_the_card_match_cpu(dev, model):
         o, r = getattr(out, name).cpu(), getattr(ref, name)
         torch.testing.assert_close(o, r, rtol=0,
                                    atol=2e-4 * r.abs().max().item())
+
+
+# ------------------------------------------------ the four-modality stream
+
+@pytest.fixture(scope="module")
+def mm_stream(dev):
+    """The CPU parity stream of tests/test_torch_ooo.py: a 3 s room from a
+    16x256 LiDAR with 20 Hz radar and 10 Hz odometry, late and re-ordered
+    arrivals of each kind."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import four_modality_stream
+
+    return four_modality_stream(
+        syn.TrajectoryConfig(t_total=3.0, t_stationary=1.23),
+        syn.LidarModel())
+
+
+def _feed_events(s, data, events, imu_i=0):
+    from mimosa_tpu_torch.io.synthetic_replay import feed_event
+
+    for ev in events:
+        imu_i = feed_event(s, data, ev, imu_i)
+    return imu_i
+
+
+# the step variants the four-modality stream runs, by kind (radar and
+# odometry keys also carry their configuration)
+MM_VARIANTS = {("scan", False, True), ("scan", False, False), ("scan_ooo",),
+               ("marginalize",), ("declare",), ("radar", "declare"),
+               ("radar", "attach"), ("radar", "samekey"), ("radar", "ooo"),
+               ("odom", True), ("odom", False)}
+
+
+def _variant(key):
+    return key[:2] if key[0] in ("radar", "odom") else key
+
+
+def test_four_modality_captured_run_equals_eager(mm_stream):
+    """The stream replayed from graphs and run op by op: the same bits in
+    every state field and the same counters; every step variant was
+    captured once and then replayed."""
+    data, events = mm_stream
+    eager, graph = _room_sequencer(True), _room_sequencer(False)
+    _feed_events(eager, data, events)
+    _feed_events(graph, data, events)
+    assert graph.counters == eager.counters
+    for k in ("radar_ooo_inserted", "radar_ooo_samekey",
+              "scans_ooo_inserted", "scans_ooo_samekey", "odom_anchor"):
+        assert graph.counters[k] > 0, (k, graph.counters)
+    _assert_states_equal(_state(graph), _state(eager))
+    g = graph.graphs
+    assert {_variant(k) for k in g.graphs} == MM_VARIANTS
+    assert g.captures == len(g.graphs)       # none captured twice
+    assert g.replays > len(events) // 2
+
+
+def test_four_modality_two_replays_are_bitwise_equal(mm_stream):
+    """One stretch of the stream (late radar, odometry, a swapped scan
+    inserted mid-window) twice from the same state through the captured
+    graphs: the same bits, and no graph captured again."""
+    from mimosa_tpu_torch import convert
+
+    data, events = mm_stream
+    s = _room_sequencer(False)
+    j = len(events) // 2
+    imu_i = _feed_events(s, data, events[:j])
+    start = _state(s)
+    c0 = dict(s.counters)
+    _feed_events(s, data, events[j:], imu_i)
+    first = _state(s)
+    assert s.counters["scans_ooo_inserted"] > c0["scans_ooo_inserted"]
+    assert s.counters["radar_ooo_inserted"] > c0["radar_ooo_inserted"]
+    captures = s.graphs.captures
+    convert.load_sequencer_state(s, start)
+    _feed_events(s, data, events[j:], imu_i)
+    _assert_states_equal(_state(s), first)
+    assert s.graphs.captures == captures
+
+
+def test_out_of_order_scan_replay_launches_match_the_profiler(mm_stream):
+    """Over the second half of the stream, where the second swapped scan
+    captures and replays the out-of-order step, the ICP launches counted
+    equal
+    (n_gn_iters + 1) per scan step, in order and out of order, and the
+    kernels the profiler sees run on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, events = mm_stream
+    s = _room_sequencer(False)
+    j = len(events) // 2
+    imu_i = _feed_events(s, data, events[:j])
+    # the first swapped scan ran the step's warm-up; the second is
+    # captured and replayed inside the profiled half
+    assert ("scan_ooo",) in s.graphs.warm
+    assert ("scan_ooo",) not in s.graphs.graphs
+    torch.cuda.synchronize()
+    launches, steps = icp_cuda.LAUNCHES, s.scan_idx
+    ooo = s.counters["scans_ooo_inserted"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _feed_events(s, data, events[j:], imu_i)
+        torch.cuda.synchronize()
+    assert s.counters["scans_ooo_inserted"] > ooo
+    assert s.graphs.graphs[("scan_ooo",)][1] == s.cfg.n_gn_iters + 1
+    counted = icp_cuda.LAUNCHES - launches
+    assert counted == (s.cfg.n_gn_iters + 1) * (s.scan_idx - steps)
+    ran = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "icp_linearize_kernel" in e.name]
+    assert len(ran) == counted

@@ -31,6 +31,8 @@ from mimosa_tpu.io import synthetic as jsyn
 from mimosa_tpu.lidar import geometric as jgeo
 from mimosa_tpu.lidar import photometric as jph
 from mimosa_tpu.mapping import voxel_hash as jvh
+from mimosa_tpu.odometry import factor as jodo
+from mimosa_tpu.radar import factor as jrad
 from mimosa_tpu_torch import convert
 from mimosa_tpu_torch.graph import sequencer as tseq
 from mimosa_tpu_torch.graph import window as twin
@@ -39,6 +41,8 @@ from mimosa_tpu_torch.io import synthetic_replay as trep
 from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.lidar import photometric as tph
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
+from mimosa_tpu_torch.odometry import factor as todo
+from mimosa_tpu_torch.radar import factor as trad
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,6 +60,8 @@ def _release_compiled_programs():
     (jvh.VoxelMapConfig, tvh.VoxelMapConfig),
     (jgeo.GeometricConfig, tgeo.GeometricConfig),
     (jph.PhotometricConfig, tph.PhotometricConfig),
+    (jrad.RadarConfig, trad.RadarConfig),
+    (jodo.OdometryConfig, todo.OdometryConfig),
 ], ids=lambda p: p[0].__name__)
 def test_config_fields_and_defaults_match(pair):
     j, t = pair
@@ -258,7 +264,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib')) or k == 'mimosa_tpu' or "
         "k.startswith('mimosa_tpu.'))\n"
-        "assert 'mimosa_tpu_torch.lidar.photometric' in names, names\n"
+        "for n in ('lidar.photometric', 'radar.factor', "
+        "'odometry.factor'):\n"
+        "    assert 'mimosa_tpu_torch.' + n in names, names\n"
         "assert len(names) > 12, names\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
