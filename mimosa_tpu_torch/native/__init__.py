@@ -5,14 +5,18 @@ are the same sources. :func:`pack_scan` (the int16 xyz codec) and
 :func:`pack_range` (the int16 range-image codec) are one fused pass each:
 point skip, pad or truncate, quantize with the subtractive per-lane
 dither, and the scan's end time over the full-density valid lanes.
+:func:`decode_filtered` decodes and filters a raw PointCloud2 buffer in
+one pass, and :func:`ring_sort` orders a cloud's points ring by ring (the
+bag replay's organize-by-ring).
 
 The library is built with g++ at first use into ``build/mimosa_tpu_torch/``
 (named by a hash of the sources, the flags and the host CPU, since it is
 built with ``-march=native``), with OpenMP where the compiler
 has it and serially otherwise; both give the same bits. A failed build or
 load raises: the Sequencer has no quiet numpy path. The numpy versions
-(:func:`pack_scan_numpy`, :func:`pack_range_numpy`) are the plain twins
-that the tests hold the library against, bit for bit.
+(:func:`pack_scan_numpy`, :func:`pack_range_numpy`,
+:func:`ring_sort_numpy`) are the plain twins that the tests hold the
+library against, bit for bit.
 """
 
 from __future__ import annotations
@@ -101,6 +105,12 @@ def build():
         lib.mimosa_pack_range.argtypes = [p, i32, p, i32, p, p, i32, p, i64,
                                           i64, i64] + tail
         lib.mimosa_pack_scan.restype = lib.mimosa_pack_range.restype = i64
+        lib.mimosa_decode_filtered.argtypes = [p, i64, i64, p, p, f64, f64,
+                                               f64, f64, f64, f64, i64, i64,
+                                               i64, p, p, p, p]
+        lib.mimosa_ring_sort.argtypes = [p, i64, i32, p, p]
+        lib.mimosa_decode_filtered.restype = lib.mimosa_ring_sort.restype = \
+            i64
         _lib, build_mode = lib, mode
         return lib
 
@@ -268,3 +278,84 @@ def pack_range_numpy(points, t_rel, valid, intensity, skip, n_out, ncol,
         iq = np.clip(np.round(iv[::skip][:k] * inv_int), 0, 32767)
         out[:k, 2] = np.where(ok_s[:k], iq, 0).astype(np.int16)
     return out, t_end
+
+
+# the sources' field dtype codes, by numpy dtype (0: the field is absent)
+_FIELD_CODE = {np.dtype(np.int8): 1, np.dtype(np.uint8): 2,
+               np.dtype(np.int16): 3, np.dtype(np.uint16): 4,
+               np.dtype(np.int32): 5, np.dtype(np.uint32): 6,
+               np.dtype(np.float32): 7, np.dtype(np.float64): 8}
+# each point format's time field
+_TIME_FIELD = {"ouster": "t", "ouster_r8": "t", "ouster_odyssey": "t",
+               "livox_custom2": "t", "internal": "t", "livox": "timestamp",
+               "hesai": "timestamp", "rslidar": "timestamp",
+               "velodyne": "time", "velodyne_anybotics": "time"}
+
+
+def decode_filtered(data, fields, point_step, max_out, t_scale=1e-9,
+                    t_offset=0.0, range_min=0.2, range_max=100.0,
+                    intensity_min=0.0, intensity_max=1e18, point_skip=1,
+                    ring_skip=1):
+    """Fused decode + filter of a raw PointCloud2 buffer into dense arrays
+    (``fields``: a list of ``io.pointcloud2.Field``). A point is kept when
+    it is finite, its range lies in [range_min, range_max], its intensity
+    (where the cloud has one) in [intensity_min, intensity_max], its index
+    is a multiple of ``point_skip`` and its ring (where the cloud has one)
+    of ``ring_skip``; its time is ``raw * t_scale - t_offset``. Returns
+    (xyz [k,3] f32, intensity [k] f32, t_rel [k] f64, ring [k] i32, -1
+    without a ring field) with k <= max_out."""
+    from mimosa_tpu_torch.io import pointcloud2 as pc2
+
+    by_name = {f.name: f for f in fields}
+    sel = [by_name.get("x"), by_name.get("y"), by_name.get("z"),
+           by_name.get("intensity"),
+           by_name.get(_TIME_FIELD[pc2.detect_format(fields)]),
+           by_name.get("ring") or by_name.get("line")]
+    if point_step < 1:
+        raise ValueError(f"point_step must be >= 1, got {point_step}")
+    for f in sel:
+        if f is not None and f.offset + np.dtype(
+                pc2._DTYPES[f.datatype]).itemsize > point_step:
+            raise ValueError(f"field {f.name} at offset {f.offset} does not "
+                             f"fit a {point_step}-byte point")
+    buf = np.ascontiguousarray(
+        np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray)
+        else data.view(np.uint8).reshape(-1))
+    offsets = np.asarray([f.offset if f else 0 for f in sel], np.int64)
+    codes = np.asarray([_FIELD_CODE[np.dtype(pc2._DTYPES[f.datatype])]
+                        if f else 0 for f in sel], np.int32)
+    lib = build()
+    xyz = np.empty((max_out, 3), np.float32)
+    inten = np.empty(max_out, np.float32)
+    t = np.empty(max_out, np.float64)
+    ring = np.empty(max_out, np.int32)
+    k = lib.mimosa_decode_filtered(
+        _ptr(buf), len(buf) // point_step, point_step, _ptr(offsets),
+        _ptr(codes), t_scale, t_offset, range_min, range_max, intensity_min,
+        intensity_max, point_skip, ring_skip, max_out, _ptr(xyz),
+        _ptr(inten), _ptr(t), _ptr(ring))
+    return xyz[:k], inten[:k], t[:k], ring[:k]
+
+
+def ring_sort(rings, n_rings):
+    """Ring-major stable permutation of point indices (the reference's
+    organize_pointcloud_by_ring, src/lidar/manager.cpp:205-242): points
+    ordered by ring ascending, in arrival order within a ring; rings
+    outside [0, n_rings) count as the last ring. Returns idx (int64 [n])
+    such that arrays[idx] is ring-major. One counting-sort pass."""
+    if n_rings < 1:
+        raise ValueError(f"n_rings must be >= 1, got {n_rings}")
+    lib = build()
+    rings = np.ascontiguousarray(np.asarray(rings, np.int32))
+    idx = np.empty(len(rings), np.int64)
+    scratch = np.empty(n_rings + 1, np.int64)
+    lib.mimosa_ring_sort(_ptr(rings), len(rings), n_rings, _ptr(idx),
+                         _ptr(scratch))
+    return idx
+
+
+def ring_sort_numpy(rings, n_rings):
+    """The plain twin of :func:`ring_sort` (a stable argsort)."""
+    r = np.asarray(rings, np.int32)
+    r = np.where((r < 0) | (r >= n_rings), n_rings - 1, r)
+    return np.argsort(r, kind="stable").astype(np.int64)

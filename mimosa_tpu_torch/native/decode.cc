@@ -9,9 +9,8 @@
 // writing dense padded output arrays the device kernels consume directly.
 //
 // ABI: plain C, driven from Python via ctypes
-// (mimosa_tpu_torch/native/__init__.py, which binds the two packs; the
-// decode and ring-sort entry points wait for the port's pointcloud2
-// reader). The port's copy of mimosa_tpu/native/decode.cc.
+// (mimosa_tpu_torch/native/__init__.py binds all four entry points). The
+// port's copy of mimosa_tpu/native/decode.cc.
 
 #include <cmath>
 #include <cstdint>

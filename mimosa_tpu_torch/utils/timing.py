@@ -1,12 +1,14 @@
 """Per-stage host wall-clock timing (port of ``mimosa_tpu/utils/timing.py``).
 
 Host clock only: a stage that launches device work measures the enqueue
-unless it ends in ``torch.cuda.synchronize()``.
+unless it ends in ``torch.cuda.synchronize()``. Safe to use from several
+threads (the online estimator stages scans on the pusher's thread).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 
@@ -23,6 +25,7 @@ class StageTimer:
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -30,12 +33,15 @@ class StageTimer:
         try:
             yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
 
     def summary(self):
-        return {
-            k: dict(total_s=self.totals[k], count=self.counts[k],
-                    mean_ms=self.totals[k] / max(self.counts[k], 1) * 1e3)
-            for k in sorted(self.totals)
-        }
+        with self._lock:
+            return {
+                k: dict(total_s=self.totals[k], count=self.counts[k],
+                        mean_ms=self.totals[k] / max(self.counts[k], 1) * 1e3)
+                for k in sorted(self.totals)
+            }

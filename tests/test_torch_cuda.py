@@ -800,3 +800,181 @@ def test_out_of_order_scan_replay_launches_match_the_profiler(mm_stream):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and "icp_linearize_kernel" in e.name]
     assert len(ran) == counted
+
+
+# ------------------------------------ the online estimator and the checkpoint
+
+def _recording(s):
+    """Record what the online estimator's worker hands Sequencer ``s``, in
+    order: ("imu", (ts, acc, gyro)) and ("scan", ts_header)."""
+    order = []
+    add_imu, add_scan = s.add_imu, s.add_scan
+
+    def rec_imu(ts, acc, gyro):
+        order.append(("imu", (ts, acc, gyro)))
+        add_imu(ts, acc, gyro)
+
+    def rec_scan(ts_header, staged):
+        order.append(("scan", ts_header))
+        add_scan(ts_header, staged=staged)
+
+    s.add_imu, s.add_scan = rec_imu, rec_scan
+    return order
+
+
+def _replay_order(s, data, order):
+    """Feed Sequencer ``s`` the recorded order offline."""
+    by_header = {sc["ts_header"]: sc for sc in data["scans"]}
+    for kind, x in order:
+        if kind == "imu":
+            s.add_imu(*x)
+        else:
+            sc = by_header[x]
+            s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                       sc["valid"])
+    torch.cuda.synchronize()
+
+
+def _push_all(est, data, on_scan=None):
+    """IMU and scans in arrival order (a scan 10 ms after its end), the
+    worker caught up after every scan."""
+    from mimosa_tpu_torch.graph.sequencer import Sequencer
+
+    imu = data["imu"]
+    ev = [(float(t), 0, i) for i, t in enumerate(imu["ts"])]
+    ev += [(Sequencer._scan_t_end(sc) + 0.01, 1, k)
+           for k, sc in enumerate(data["scans"])]
+    for _, kind, k in sorted(ev):
+        if kind == 0:
+            est.push_imu(imu["ts"][k], imu["acc"][k], imu["gyro"][k])
+            continue
+        sc = data["scans"][k]
+        assert est.push_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                             sc["valid"])
+        if on_scan is not None:
+            on_scan(k)
+        assert est.flush(timeout=300.0)
+
+
+def _same_trajectory(a, b):
+    assert a._traj_ts == b._traj_ts
+    np.testing.assert_array_equal(
+        np.asarray([p for _, p, _ in a.trajectory]),
+        np.asarray([p for _, p, _ in b.trajectory]))
+
+
+def test_online_run_equals_the_captured_offline_run(room, caplog):
+    """The online estimator on the card (scans staged on the pusher's thread,
+    steps captured and replayed on the worker) gives the bits of the same
+    Sequencer fed the worker's event order offline, captured."""
+    import logging
+
+    from mimosa_tpu_torch.io.online import OnlineEstimator
+
+    s = _room_sequencer(False)
+    order = _recording(s)
+    states = []
+    with caplog.at_level(logging.ERROR, logger="mimosa_tpu_torch.io.online"):
+        est = OnlineEstimator(s, on_state=lambda ts, *a: states.append(ts))
+        _push_all(est, room)
+        est.stop(drain=True)
+    assert not est._worker.is_alive() and not caplog.records
+    assert est.counters["scans_dropped_backlog"] == 0
+    assert s.graphs.replays > 0 and est.counters["rebases"] > 0
+    off = _room_sequencer(False)
+    _replay_order(off, room, order)
+    _same_trajectory(s, off)
+    # the last rebase carries the newest state, read from the card
+    cs = est.current_state()
+    assert cs.ts == states[-1] == s.last_state_ts
+    np.testing.assert_array_equal(cs.p, s.current_state().p.astype(float))
+
+
+def test_stage_during_a_capture_neither_fails_nor_reorders(room, caplog):
+    """While the worker captures a step variant, this thread (the pusher)
+    pushes IMU samples and the next scan, staging it: a pinned buffer, its
+    copy to the card and an event, on this thread's stream. The capture
+    succeeds (it is thread-local), and the run gives the bits of the same
+    Sequencer fed the worker's order offline, captured: every staged copy
+    landed before the step that read it."""
+    import logging
+    import queue
+
+    from mimosa_tpu_torch.graph.sequencer import Sequencer
+    from mimosa_tpu_torch.io.online import OnlineEstimator
+
+    s = _room_sequencer(False)
+    order = _recording(s)
+    entered, release = queue.Queue(), queue.Queue()
+    capture = s.graphs._capture
+
+    def capture_waiting_for_a_stage(fn, bufs, ins):
+        def step(*args):
+            # inside the capture: wait until the pusher has staged a scan
+            entered.put(None)
+            release.get(timeout=120.0)
+            return fn(*args)
+        return capture(step, bufs, ins)
+
+    s.graphs._capture = capture_waiting_for_a_stage
+    imu = room["imu"]
+    ev = [(float(t), 0, i) for i, t in enumerate(imu["ts"])]
+    ev += [(Sequencer._scan_t_end(sc) + 0.01, 1, k)
+           for k, sc in enumerate(room["scans"])]
+    staged_in_capture, waiting = 0, False
+    with caplog.at_level(logging.ERROR, logger="mimosa_tpu_torch.io.online"):
+        est = OnlineEstimator(s)
+        for _, kind, k in sorted(ev):
+            if kind == 0:
+                est.push_imu(imu["ts"][k], imu["acc"][k], imu["gyro"][k])
+                continue
+            sc = room["scans"][k]
+            assert est.push_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                                 sc["valid"])
+            if waiting:               # staged while the capture is open
+                staged_in_capture += 1
+                waiting = False
+                release.put(None)
+            # until the worker has caught up or is inside a capture
+            while not est.flush(timeout=0.05):
+                try:
+                    entered.get_nowait()
+                except queue.Empty:
+                    continue
+                waiting = True
+                break
+        if waiting:
+            release.put(None)
+        est.stop(drain=True)
+    assert not est._worker.is_alive() and not caplog.records
+    assert staged_in_capture >= 2 and s.graphs.captures >= 2
+    off = _room_sequencer(False)
+    _replay_order(off, room, order)
+    _same_trajectory(s, off)
+
+
+def test_checkpoint_between_replays_resumes_bitwise(room, tmp_path):
+    """Save after 12 scans, run to the end, load, run the rest again: the
+    captured graphs replay on the loaded state (its values copied into their
+    static buffers, nothing captured again) and give the same bits."""
+    from mimosa_tpu_torch.utils import checkpoint as ckpt
+
+    s = _room_sequencer(False)
+    n = 12
+    imu_i = _feed(s, room, range(n))
+    assert {("scan", False, True), ("marginalize",)} <= set(s.graphs.graphs)
+    steps = s.scan_idx                    # the first scan initializes
+    ckpt.save(s, tmp_path / "mid.npz")
+    rest = range(n, len(room["scans"]))
+    _feed(s, room, rest, imu_i)
+    torch.cuda.synchronize()
+    first = _state(s)
+    traj = np.asarray([p for _, p, _ in s.trajectory])
+    captures, replays = s.graphs.captures, s.graphs.replays
+    ckpt.load(s, tmp_path / "mid.npz")
+    assert s.scan_idx == steps
+    _feed(s, room, rest, imu_i)
+    assert s.graphs.captures == captures and s.graphs.replays > replays
+    _assert_states_equal(_state(s), first)
+    np.testing.assert_array_equal(
+        np.asarray([p for _, p, _ in s.trajectory]), traj)

@@ -1,0 +1,316 @@
+"""The port's bag replay (``io/replay.py``) on the CPU.
+
+* the JAX package's ``replay_bag`` and the port's ``replay_bag(device=
+  "cpu")`` on one bag with IMU, LiDAR, radar and odometry topics: the same
+  state times and counters, both ATEs under 0.08 m and within 5 mm of each
+  other (runs of the two packages are compared by ATE: the estimator is
+  chaotic near tracking loss; the largest position gap is printed, not
+  gated);
+* the CLI (``main``): its TUM file equals the in-process replay's, and it
+  prints the ATE against ``--gt``;
+* organize-by-ring: a ring-interleaved cloud with ``point_skip_divisor``
+  4 is thinned in ring-major order through ``native.ring_sort``
+  (``tests/test_bag_replay_cli.py``'s case);
+* the range codec's fidelity gate and its yaw fit;
+* ``StepControl``;
+* the options not ported yet, and the missing card, raise.
+
+The JAX side runs once, in one fixture that one test uses. It takes most
+of this module's time: the JAX package compiles its scan, radar and
+odometry steps on the CPU.
+"""
+
+import copy
+import dataclasses
+import gc
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from mimosa_tpu.io import replay as jreplay
+from mimosa_tpu_torch.config import loader as tload
+from mimosa_tpu_torch.io import pointcloud2 as tpc2
+from mimosa_tpu_torch.io import replay as treplay
+from mimosa_tpu_torch.io import rosbag as tbag
+from mimosa_tpu_torch.io import rosbag_writer as tw
+from mimosa_tpu_torch.io import synthetic as tsyn
+from mimosa_tpu_torch.utils import evaluation as tev
+from test_bag_replay_cli import SYN_PARAMS
+
+ATE_GATE = 0.08        # tests/test_bag_replay_cli.py's gate
+ATE_PAIR = 0.005       # [m] the two packages' ATEs apart
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_programs():
+    """Free the XLA:CPU programs this module compiled (the reason is in
+    test_torch_core.py)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
+
+def _write_bag(path, data, radar, odom):
+    """IMU, scans (at their end + 10 ms), rio radar frames (+5 ms) and
+    odometry (+3 ms) in receipt order, by the port's writer."""
+    w = tw.BagWriter(str(path))
+    imu = data["imu"]
+    ev = [(t, 0, k) for k, t in enumerate(imu["ts"])]
+    ev += [(sc["ts_header"] + sc["t_rel"].max() + 0.01, 1, k)
+           for k, sc in enumerate(data["scans"])]
+    ev += [(fr["ts"] + 0.005, 2, k) for k, fr in enumerate(radar)]
+    ev += [(m["ts"] + 0.003, 3, k) for k, m in enumerate(odom)]
+    for t, kind, k in sorted(ev):
+        if kind == 0:
+            w.write("/imu", "sensor_msgs/Imu", imu["ts"][k],
+                    tw.serialize_imu(imu["ts"][k], imu["acc"][k],
+                                     imu["gyro"][k]))
+        elif kind == 1:
+            sc = data["scans"][k]
+            pts = np.where(sc["valid"][:, None], sc["points"], np.nan)
+            w.write("/points", "sensor_msgs/PointCloud2", t,
+                    tw.serialize_ouster_cloud(sc["ts_header"], pts,
+                                              sc["intensity"], sc["t_rel"]))
+        elif kind == 2:
+            fr = radar[k]
+            w.write("/radar", "sensor_msgs/PointCloud2", t,
+                    tw.serialize_radar_rio(fr["ts"], fr["points"],
+                                           fr["doppler"], fr["snr_db"]))
+        else:
+            m = odom[k]
+            w.write("/odom", "nav_msgs/Odometry", t,
+                    tw.serialize_odometry(m["ts"], m["q"], m["t"], m["cov"]))
+    w.close()
+
+
+@pytest.fixture(scope="module")
+def bag(tmp_path_factory):
+    """A 2.5 s noisy room from a 16x256 LiDAR with 5 Hz radar frames and
+    5 Hz odometry between the scans (radar 25 ms and odometry 75 ms after
+    a scan's end: each declares its own state, none arrives late), its
+    ground truth as a TUM file, and SYN_PARAMS with the radar and odometry
+    managers."""
+    d = tmp_path_factory.mktemp("replay")
+    tc = tsyn.TrajectoryConfig(t_total=2.5, t_stationary=1.25)
+    data = tsyn.generate(tsyn.room_world(), tc, tsyn.LidarModel(), seed=0,
+                         imu_noise=0.01, range_noise=0.005)
+    traj = tsyn.make_trajectory(tc)
+    radar = tsyn.generate_radar(traj, tc, rate=5.0, seed=0)
+    odom = tsyn.generate_odometry(
+        traj, dataclasses.replace(tc, t_stationary=1.35), rate=5.0, seed=0)
+    _write_bag(d / "room.bag", data, radar, odom)
+    params = copy.deepcopy(SYN_PARAMS)
+    params["radar"] = {"T_B_S": [0, 0, 0, 0, 0, 0, 1],
+                       "manager": {"enabled": True,
+                                   "is_exposure_compensated": True}}
+    params["odometry"] = {"manager": {"enabled": True}}
+    (d / "params.yaml").write_text(yaml.safe_dump(params))
+    gt = data["gt"]
+    with open(d / "gt.tum", "w") as f:
+        for t, p, q in zip(gt["ts"], gt["pos"], gt["quat"]):
+            f.write(" ".join(repr(float(v)) for v in
+                             (t, *p, q[1], q[2], q[3], q[0])) + "\n")
+    return dict(dir=d, bag=str(d / "room.bag"), cfg=str(d / "params.yaml"),
+                gt=str(d / "gt.tum"), data=data, n_radar=len(radar),
+                n_odom=len(odom))
+
+
+KW = dict(radar_topic="/radar", odom_topic="/odom", max_scan_points=4096,
+          verbose=False)
+
+
+@pytest.fixture(scope="module")
+def port_run(bag):
+    return treplay.replay_bag(bag["bag"], bag["cfg"], "/imu", "/points",
+                              device="cpu", **KW)
+
+
+def _traj(s):
+    tr = s.trajectory
+    return (np.array([t for t, _, _ in tr]), np.array([p for _, p, _ in tr]))
+
+
+def _ate(s, bag):
+    gt_ts, gt_p, _ = tev.load_tum(bag["gt"])
+    return tev.ate(*_traj(s), gt_ts, gt_p)
+
+
+def test_replay_matches_jax(bag, port_run):
+    js = jreplay.replay_bag(bag["bag"], bag["cfg"], "/imu", "/points", **KW)
+    s = port_run
+    assert s.device.type == "cpu"
+    c = s.counters
+    assert c == js.counters
+    assert c["radar_frames"] == bag["n_radar"] and \
+        c["odom_msgs"] == bag["n_odom"]
+    # every modality ran, and nothing arrived late
+    assert c["scans"] > 10 and c["radar_frames"] > c["radar_dropped"]
+    assert c["odom_msgs"] > c["odom_dropped"] and c["scans_no_imu"] == 0
+    assert not any(k.endswith(("ooo_inserted", "ooo_samekey")) and v
+                   for k, v in c.items())
+    tj, pj = _traj(js)
+    tt, pt = _traj(s)
+    np.testing.assert_array_equal(tt, tj)
+    ate_j, ate_t = _ate(js, bag), _ate(s, bag)
+    print(f"bag replay ATE: JAX {ate_j:.5f} m, port {ate_t:.5f} m, largest "
+          f"position gap {np.abs(pt - pj).max():.2e} m")
+    assert ate_j < ATE_GATE and ate_t < ATE_GATE
+    assert abs(ate_j - ate_t) < ATE_PAIR
+
+
+def test_cli_writes_the_replay_tum(bag, port_run, capsys):
+    out = bag["dir"] / "cli.tum"
+    treplay.main(["--bag", bag["bag"], "--config", bag["cfg"],
+                  "--imu-topic", "/imu", "--lidar-topic", "/points",
+                  "--radar-topic", "/radar", "--odom-topic", "/odom",
+                  "--max-scan-points", "4096", "--gt", bag["gt"],
+                  "--out", str(out), "--device", "cpu"])
+    printed = capsys.readouterr().out
+    ref = bag["dir"] / "inproc.tum"
+    port_run.write_tum(str(ref))
+    assert out.read_text() == ref.read_text()
+    ts, p, q = tev.load_tum(str(out))
+    assert len(ts) == len(port_run.trajectory)
+    line = [ln for ln in printed.splitlines() if ln.startswith("ATE:")]
+    assert line == [f"ATE: {_ate(port_run, bag):.4f} m  RTE: nan %"]
+
+
+def test_organize_by_ring_thins_ring_major(tmp_path):
+    """A ring-interleaved cloud (ring index fastest) with
+    point_skip_divisor 4: arrival-order skipping would keep every 4th ring;
+    the ring-major skip through native.ring_sort keeps a quarter of every
+    ring and the estimator tracks (tests/test_bag_replay_cli.py)."""
+    lm = tsyn.LidarModel(n_rows=32, n_cols=256)
+    base = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(t_total=2.5),
+                         lm, seed=0)
+    n_rows, n_cols = lm.n_rows, lm.n_cols
+    w = tw.BagWriter(str(tmp_path / "ring.bag"))
+    imu = base["imu"]
+    ev = [(t, 0, k) for k, t in enumerate(imu["ts"])]
+    ev += [(sc["ts_header"] + np.nan_to_num(sc["t_rel"]).max() + 0.01, 1, k)
+           for k, sc in enumerate(base["scans"])]
+    for t, kind, k in sorted(ev):
+        if kind == 0:
+            w.write("/imu", "sensor_msgs/Imu", imu["ts"][k],
+                    tw.serialize_imu(imu["ts"][k], imu["acc"][k],
+                                     imu["gyro"][k]))
+            continue
+        sc = base["scans"][k]
+        n = len(sc["points"])
+        row = np.repeat(np.arange(n_rows), n_cols)[:n].astype(np.uint16)
+        perm = np.lexsort((row, np.tile(np.arange(n_cols), n_rows)[:n]))
+        v = sc["valid"][perm]
+        pts = np.where(v[:, None], sc["points"][perm], np.nan)
+        w.write("/points", "sensor_msgs/PointCloud2", t,
+                tw.serialize_ouster_cloud(sc["ts_header"], pts,
+                                          np.ones(len(pts)),
+                                          np.nan_to_num(sc["t_rel"])[perm],
+                                          ring=row[perm]))
+    w.close()
+    params = copy.deepcopy(SYN_PARAMS)
+    params["lidar"]["manager"]["organize_pointcloud_by_ring"] = True
+    params["lidar"]["geometric"]["point_skip_divisor"] = 4
+    cfgp = tmp_path / "params.yaml"
+    cfgp.write_text(yaml.safe_dump(params))
+    s = treplay.replay_bag(str(tmp_path / "ring.bag"), str(cfgp), "/imu",
+                           "/points", max_scan_points=n_rows * n_cols,
+                           verbose=False, device="cpu")
+    # thinned on the host in ring-major order, so not again on the device
+    assert s.cfg.geo_skip == 1
+    ts, p = _traj(s)
+    assert tsyn.ate_rmse(ts, p, base["gt"]["ts"], base["gt"]["pos"]) < \
+        ATE_GATE
+    assert s.debug_records()[3:, 0].min() > 100
+
+
+def _organized_scan(tmp_path, yaw=0.0, scramble=False):
+    """(ray table, first-scan message) of an organized Ouster cloud that
+    follows the affine beam model p = s * dir + off exactly, turned by
+    ``yaw`` about z, optionally with its points out of pixel order."""
+    rows, cols = 16, 128
+    meta = {"beam_intrinsics": {
+        "beam_altitude_angles": np.linspace(-20, 20, rows).tolist(),
+        "beam_azimuth_angles": np.linspace(2, -2, rows).tolist(),
+        "lidar_origin_to_beam_origin_mm": 15.0},
+        "lidar_data_format": {"columns_per_frame": cols,
+                              "pixels_per_column": rows}}
+    path = tmp_path / "meta.json"
+    path.write_text(json.dumps(meta))
+    rd = tload.ouster_ray_dirs(tload.load_ouster_metadata(str(path)))
+    rng = np.random.default_rng(0)
+    s = rng.uniform(2.0, 20.0, len(rd))
+    pts = s[:, None] * rd[:, :3] + rd[:, 3:6]
+    c, si = np.cos(yaw), np.sin(yaw)
+    pts = pts @ np.array([[c, -si, 0], [si, c, 0], [0, 0, 1.0]]).T
+    if scramble:
+        pts = pts[rng.permutation(len(pts))]
+    body = tw.serialize_ouster_cloud(1.0, pts, np.ones(len(pts)),
+                                     np.zeros(len(pts)))
+    return rd, tbag.parse_pointcloud2(body)
+
+
+def test_range_codec_fidelity_gate(tmp_path, capsys):
+    rd, m0 = _organized_scan(tmp_path)
+    np.testing.assert_array_equal(
+        treplay._fit_range_codec(rd, m0, tpc2, verbose=False), rd)
+    # a fixed sensor-frame yaw is fitted and compensated
+    rd_y, m0_y = _organized_scan(tmp_path, yaw=np.radians(0.3))
+    fitted = treplay._fit_range_codec(rd_y, m0_y, tpc2, verbose=True)
+    assert "compensated a fixed +0.30 deg" in capsys.readouterr().out
+    assert not np.array_equal(fitted, rd_y)
+    # points out of pixel order, and a cloud of the wrong size, refuse
+    rd_s, m0_s = _organized_scan(tmp_path, scramble=True)
+    with pytest.raises(ValueError, match="reconstruction residual"):
+        treplay._fit_range_codec(rd_s, m0_s, tpc2, verbose=False)
+    with pytest.raises(ValueError, match="beam table covers"):
+        treplay._fit_range_codec(rd[:-1], m0, tpc2, verbose=False)
+
+
+def test_step_control_semantics():
+    """SPACE pause / 's' step / 'q' abort (the reference's raw-tty replay
+    control, mimosa_rosbag.cpp:166-185), as tests/test_bag_replay_cli.py."""
+    feed = iter(["", " s", "s", " ", "", "q", ""])
+    sc = treplay.StepControl(read_keys=lambda: next(feed, ""))
+    assert sc.gate() and not sc.paused        # running
+    assert sc.gate() and sc.paused            # pause + step one scan
+    assert sc.gate() and sc.paused            # step again
+    assert sc.gate() and not sc.paused        # resume
+    assert sc.gate()
+    assert not sc.gate()                      # abort
+    assert not sc.gate()                      # stays aborted
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(bulk=True), 12), (dict(two_pass=True), 13), (dict(smooth=True), 13),
+    (dict(debug_stream=object()), 15)],
+    ids=["bulk", "two_pass", "smooth", "debug_stream"])
+def test_replay_refuses_what_is_not_ported(option, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        treplay.replay_bag("absent.bag", "absent.yaml", "/imu", "/points",
+                           device="cpu", **option)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--bulk"], 12), (["--two-pass"], 13), (["--smooth"], 13),
+    (["--debug-stream", "x.jsonl"], 15), (["--stream-every", "5"], 15)],
+    ids=["bulk", "two_pass", "smooth", "debug_stream", "stream_every"])
+def test_cli_refuses_what_is_not_ported(flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        treplay.main(["--bag", "absent.bag", "--config", "absent.yaml",
+                      "--imu-topic", "/imu", "--lidar-topic", "/points",
+                      "--device", "cpu"] + flags)
+
+
+def test_replay_needs_a_card_unless_asked_for_the_cpu(bag, monkeypatch):
+    """Without ``device`` the replay and its CLI ask for the card and raise
+    where there is none; nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        treplay.replay_bag(bag["bag"], bag["cfg"], "/imu", "/points")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        treplay.main(["--bag", bag["bag"], "--config", bag["cfg"],
+                      "--imu-topic", "/imu", "--lidar-topic", "/points"])
