@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stage-split   # only the per-stage split (11.)
+    python3 chip_smoke.py --chunk-graph   # only the chunk-graph design (12.)
 
 Drives the port (``mimosa_tpu_torch``) through its main paths on the card
 and prints one line per phase; any failure raises, so the exit code is
@@ -87,24 +88,53 @@ of JAX or of the JAX package.
    propagated outputs, ICP launches and graph replays, no ERROR record
    from the worker, ATE < 0.08 m, and the trajectory within 1e-6 m of the
    same Sequencer fed the worker's event order offline, captured;
+8. bulk: the offline bulk scheduler (``Sequencer.add_bulk``): (a) at
+   bench.py's geometric bulk widths (an OS-0-128 128x1024 LiDAR thinned 4x
+   at pack time, 8192 ICP points, K=8, 2^19 voxels, int16 codec) on
+   bench.py's 9 s room: the first 20 scans streamed, the rest in chunks of
+   32 (bench.py's replay_once_bulk) and the last 4 in one chunk under the
+   profiler, against the same configuration streamed scan by scan with
+   the merged slide (staged one ahead): warm scans/s of both with one
+   synchronize at the end, chunks run, events in chunks and streamed, the
+   pack, copy and dispatch ms a chunk, the device's busy ms a scan and its
+   idle share over the bulk stretch, peak device memory, ICP launches
+   (n_gn_iters + 1 a scan step, the count and the profiler's), ATE
+   < 0.08 m and the position gap to streaming < 1e-6 m (the same bits);
+   (b) mixed chunks at entry widths (``synthetic_replay.bulk_stream``: 20
+   Hz radar of 512 targets, 10 Hz odometry, radar frames and odometry
+   messages that attach to a scan's state), chunks of 8, against the same
+   events streamed with the merged slide: a gap < 1e-6 m, equal counters,
+   state_ts and _traj_src, and every event code (scan, radar declare and
+   attach, odometry declare and attach) inside a chunk; (c) the
+   corridor_radar_bulk row through ``add_bulk`` in chunks of 16 (ATE
+   < 0.20 m, RTE < 2.0%, the reference's gates), printed beside the JAX
+   package's bulk row and the streamed row of 7.;
 10. replay: the bag CLI at OS-1-64 widths: the photometric phase's 4 s
    noisy room (65,536 points a scan) with its IMU and 20 Hz radar frames
    in a bag from the port's writer, its ground truth as a TUM file and a
    YAML config (the JAX bag CLI test's parameters, the photometric
    namespace, the radar manager); ``io.replay.replay_bag`` in this process
    (scans and radar frames consumed, ICP launches, replays, ms a scan,
-   ATE < 0.08 m, RTE printed: undefined on a path under 10 m), then
+   ATE < 0.08 m, RTE printed: undefined on a path under 10 m), the same
+   bag through ``replay_bag(bulk=True)`` in this process (ms a scan, ATE
+   < 0.08 m, the same counters), then
    ``python -m mimosa_tpu_torch.io.replay`` as a subprocess on the same
    files, which must exit 0 with the same ATE line and TUM file;
 11. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
-   the scan step, printing host ms a scan step by stage (no JSON lines).
+   the scan step, printing host ms a scan step by stage (no JSON lines);
+12. with ``--chunk-graph`` and nothing else: one CUDA graph recording a
+   whole chunk of 32 scan steps at the widths of 8.(a), against the
+   per-step replays the bulk scheduler makes and against streaming:
+   capture seconds, graph memory, ms a chunk of each, device ms between
+   steps, and whether they give the same bits (no JSON lines).
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
 of the kernel (launches on the entry-width, photometric, four-modality,
-online and bag-replay paths, each counted from 0 around its run, error,
-times and bound), and the line before that the seconds each phase took.
+bulk, online and bag-replay paths, each counted from 0 around its run,
+error, times and bound), and the line before that the seconds each phase
+took.
 """
 
 import bisect
@@ -446,9 +476,10 @@ def entry_replay(**kw):
     return entry_sequencer(**kw), data
 
 
-def entry_sequencer(**kw):
+def entry_sequencer(merge_marginalize=False, **kw):
     """The Sequencer at the widths of ``__graft_entry__.entry()`` with the
-    room settings of ``synthetic_replay.run``."""
+    room settings of ``synthetic_replay.run`` (and the merged slide with
+    ``merge_marginalize``)."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.lidar import geometric as geo
@@ -458,7 +489,8 @@ def entry_sequencer(**kw):
         seq.SequencerConfig(max_scan_points=32768, n_geo_points=8192,
                             n_map_points=8192, n_gn_iters=3,
                             max_trajectory=1024, quantize_transfer=False,
-                            geo_leaf=0.4, map_insert_leaf=0.15),
+                            geo_leaf=0.4, map_insert_leaf=0.15,
+                            merge_marginalize=merge_marginalize),
         win.WindowConfig(K=8),
         vh.VoxelMapConfig(capacity_log2=18, leaf_size=0.4,
                           plane_min_points=5, lru_horizon=0),
@@ -976,7 +1008,7 @@ def stage_split_phase():
 
 def scoreboard_phase():
     """The scoreboard rows on the card (captured steps), each under its
-    gate."""
+    gate. Returns the streamed rows' (ATE, RTE) by name."""
     from mimosa_tpu_torch.io import synthetic as syn
     from mimosa_tpu_torch.io import synthetic_replay
 
@@ -1008,13 +1040,16 @@ def scoreboard_phase():
             # a NaN RTE (a path under the 10 m delta) fails here
             check(rte < rte_gate, f"{name} RTE {rte:.3f}% >= {rte_gate}%")
         ates[name] = out["ate"]
+    streamed = {}
     for name, build, gate, rte_gate in STREAM_ROWS:
-        ates[name] = stream_row(name, *build(), gate, rte_gate)
+        streamed[name] = stream_row(name, *build(), gate, rte_gate)
+        ates[name] = streamed[name][0]
     print(f"[scoreboard] corridor: ATE {ates['corridor_radar']:.5f} m with "
           f"20 Hz radar streamed against {ates['corridor_geo_proj']:.5f} m "
           f"with geometry alone (corridor_geo_proj): the Doppler factor "
           f"observes the velocity along the axis the walls leave free",
           flush=True)
+    return streamed
 
 
 def row_rte(s, data):
@@ -1094,7 +1129,7 @@ STREAM_ROWS = (("dropout_ooo", dropout_ooo, 0.080, 0.5),
 
 def stream_row(name, s, data, events, gate, rte_gate):
     """One streamed scoreboard row on the card (captured steps): its ATE,
-    under ``gate``, and its RTE, under ``rte_gate``."""
+    under ``gate``, and its RTE, under ``rte_gate``; returns both."""
     from mimosa_tpu_torch.io.synthetic_replay import (feed_event,
                                                       trajectory_ate)
 
@@ -1120,7 +1155,430 @@ def stream_row(name, s, data, events, gate, rte_gate):
           f"first-call set-up and captures, counters {c}", flush=True)
     check(ate < gate, f"{name} ATE {ate:.4f} m >= {gate}")
     check(rte < rte_gate, f"{name} RTE {rte:.3f}% >= {rte_gate}%")
-    return ate
+    return ate, rte
+
+# bench.py's scene (bench.py:79-84): the 30 x 16 x 6 m room, 9 s
+BULK_TC = dict(t_total=9.0, amp=(6.0, 3.0, 0.8), center=(12.0, 8.0, 2.0))
+BULK_CHUNK = 32           # bench.py's replay_once_bulk
+BULK_PROF = 4             # scans of the last chunk, run under the profiler
+BULK_GAP = 1e-6           # [m] bulk against merged streaming: the same bits
+BULK_MM_CHUNK = 8
+CORRIDOR_BULK_CHUNK = 16  # scripts/dataset_evaluation.py:259
+CORRIDOR_BULK_JAX = "the JAX package's bulk row on the TPU: 33.2 mm / 0.27%"
+
+
+def bench_sequencer():
+    """bench.py's geometric bulk configuration (bench.py:109-150): an
+    OS-0-128 scan (128 x 1024) thinned 4x at pack time into 32768 lanes
+    of the int16 codec, 8192 ICP points, 16384 map points, geo_leaf 0.5,
+    map_insert_leaf 0.2, K=8, 2^19 voxels, 3 GN iterations; with the
+    merged slide, so that its streamed warm-up captures the variant its
+    chunks replay."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.mapping import voxel_hash as vh
+
+    s = seq.Sequencer(
+        seq.SequencerConfig(max_scan_points=32768, point_skip=4,
+                            n_geo_points=8192, n_map_points=16384,
+                            geo_leaf=0.5, map_insert_leaf=0.2,
+                            keyframe_trans_thresh=0.3,
+                            keyframe_rot_thresh=0.15, n_gn_iters=3,
+                            merge_marginalize=True),
+        win.WindowConfig(K=8),
+        vh.VoxelMapConfig(leaf_size=0.5, capacity_log2=19,
+                          plane_min_points=5, lru_horizon=0),
+        geo.GeometricConfig())
+    check(s.device.type == "cuda" and s.graphs is not None,
+          f"the bench Sequencer chose {s.device}")
+    return s
+
+
+def positions(s):
+    return np.asarray([p for _, p, _ in s.trajectory])
+
+
+def bulk_gap(b, s, what):
+    """Bulk against merged streaming: the same schedule and positions
+    within BULK_GAP. Returns the largest position gap."""
+    check(b.counters == s.counters and b.state_ts == s.state_ts
+          and b._traj_ts == s._traj_ts and b._traj_src == s._traj_src,
+          f"{what}: bulk and streaming ran another schedule: "
+          f"{b.counters} vs {s.counters}")
+    gap = float(np.abs(positions(b) - positions(s)).max())
+    check(gap < BULK_GAP, f"{what}: bulk and merged streaming positions "
+          f"differ by {gap:.3e} m")
+    return gap
+
+
+def bulk_scans():
+    """(a) bench.py's offline bulk replay at 128 x 1024 (replay_once_bulk,
+    bench.py:219-235): the first min(20, n // 3) scans streamed, the rest
+    through add_scans_bulk in chunks of 32 (the remainder one more chunk,
+    ``tail_chunk``), timed with one synchronize at the end; then the last
+    BULK_PROF scans as one chunk under the profiler. The comparator: the
+    same configuration streamed scan by scan, each scan staged while the
+    one before runs (bench.py:186-208). Returns (ICP launches over the
+    bulk stretch, the profiler's ICP kernels in the profiled chunk)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    t0 = time.perf_counter()
+    data = syn.generate(syn.room_world(lx=30.0, ly=16.0, lz=6.0),
+                        syn.TrajectoryConfig(**BULK_TC),
+                        syn.LidarModel(n_rows=128, n_cols=1024), seed=0,
+                        imu_noise=0.01, range_noise=0.01)
+    scans, imu = data["scans"], data["imu"]
+    n = len(scans)
+    n_warm = min(20, n // 3)
+    print(f"[bulk] bench.py's room, 9 s: {n} scans of "
+          f"{len(scans[0]['points'])} points generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    s = bench_sequencer()
+    imu_i = 0
+
+    def stage(i):
+        sc = scans[i]
+        return s.stage_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                            sc["valid"])
+
+    staged = stage(0)
+    for i in range(n):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        st = staged
+        j = int(np.searchsorted(imu["ts"], st["t_end"] + 0.03, "right"))
+        if j > imu_i:
+            s.add_imu_batch(imu["ts"][imu_i:j], imu["acc"][imu_i:j],
+                            imu["gyro"][imu_i:j])
+            imu_i = j
+        s.add_scan(st["ts_header"], staged=st)
+        if i + 1 < n:
+            staged = stage(i + 1)
+    torch.cuda.synchronize()
+    stream_rate = (n - n_warm) / (time.perf_counter() - t0)
+    stream_clock = nvidia_smi("clocks.sm,power.draw")
+
+    b = bench_sequencer()
+    b.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    for sc in scans[:n_warm]:
+        b.add_scan(sc["ts_header"], sc["points"], sc["t_rel"], sc["valid"])
+    check(("scan", True, True) in b.graphs.graphs, "the bulk Sequencer's "
+          "warm-up did not capture the chunks' variant")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed, last = scans[n_warm:-BULK_PROF], scans[-BULK_PROF:]
+    extra = len(timed) % BULK_CHUNK
+    icp_cuda.LAUNCHES = 0
+    steps0, captures0 = b.scan_idx, b.graphs.captures
+    t0 = time.perf_counter()
+    b.add_scans_bulk(timed, chunk=BULK_CHUNK,
+                     tail_chunk=extra if extra >= 2 else None)
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    bulk_rate = len(timed) / bulk_s
+    bulk_clock = nvidia_smi("clocks.sm,power.draw")
+    timers = b.timers.summary()
+    counts = dict(b.bulk_counts)
+    launches0 = icp_cuda.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        b.add_scans_bulk(last, chunk=BULK_PROF)
+        torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() / 2**20
+    launches = icp_cuda.LAUNCHES
+    n1 = b.cfg.n_gn_iters + 1
+    steps = b.scan_idx - steps0
+    check(b.bulk_counts["chunks"] >= 2 and
+          b.bulk_counts["in_chunks"] + b.bulk_counts["streamed"]
+          == n - n_warm, f"bulk: {b.bulk_counts}")
+    check(b.graphs.captures == captures0, "bulk: a chunk captured a graph")
+    check(launches == n1 * steps, f"bulk: ICP kernel launched {launches} "
+          f"times in {steps} scan steps, expected {n1 * steps}")
+    events = prof.events()
+    ran = sum(1 for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "icp_linearize_kernel" in e.name)
+    check(ran == launches - launches0 == n1 * BULK_PROF, f"bulk: the "
+          f"profiler saw {ran} ICP kernels run in a chunk of {BULK_PROF} "
+          f"scans, the count says {launches - launches0}")
+    busy, n_dev = device_busy_ms(events)
+    check(n_dev > 0, "bulk: the profiler saw no device work")
+    busy_scan = busy / BULK_PROF
+    idle = 100 * (1 - busy_scan * len(timed) / (1e3 * bulk_s))
+    gap = bulk_gap(b, s, "bulk 128x1024")
+    ate = trajectory_ate(b, data)
+    check(np.isfinite(positions(b)).all(), "bulk: non-finite poses")
+    check(ate < ENTRY_ATE_GATE, f"bulk: ATE {ate:.4f} m >= "
+          f"{ENTRY_ATE_GATE}")
+    per_chunk = {k: timers[k]["mean_ms"] for k in
+                 ("t_bulk_pack", "t_bulk_put", "t_bulk_dispatch")}
+    print(f"[bulk] 128x1024 (bench.py's bulk configuration, int16 codec): "
+          f"{n_warm} scans streamed to warm up, then {len(timed)} in "
+          f"{counts['chunks']} chunks of {BULK_CHUNK}"
+          + (f" and {extra}" if extra >= 2 else "")
+          + f" ({counts['in_chunks']} in chunks, {counts['streamed']} "
+          f"streamed by the scheduler) and {BULK_PROF} in one more chunk "
+          f"under the profiler; warm scans/s with one synchronize at the "
+          f"end: bulk {bulk_rate:.2f}, streaming (merged slide, staged one "
+          f"ahead) {stream_rate:.2f} (SM clock and power draw read after "
+          f"each: bulk {bulk_clock}, streaming {stream_clock}); ms a chunk: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_chunk.items())
+          + f"; peak device memory {mem:.0f} MiB", flush=True)
+    print(f"[bulk] 128x1024: ICP kernel launches {launches} (= {n1} x "
+          f"{steps} scan steps), the profiler saw {ran} run in the "
+          f"profiled chunk (= {n1} x {BULK_PROF}); device busy "
+          f"{busy_scan:.2f} ms a scan in {n_dev / BULK_PROF:.0f} device "
+          f"ops, idle {idle:.1f}% of the timed bulk stretch "
+          f"({1e3 * bulk_s / len(timed):.2f} ms a scan); ATE {ate:.5f} m "
+          f"(gate {ENTRY_ATE_GATE}); largest position gap to streaming "
+          f"{gap:.2e} m (gate {BULK_GAP})", flush=True)
+    return launches, ran
+
+
+def bulk_mixed():
+    """(b) Mixed chunks at entry widths: synthetic_replay.bulk_stream on
+    the 4 s room from a 64x512 LiDAR (20 Hz radar of 512 targets, 10 Hz
+    odometry, a radar frame and an odometry message 2 ms after every fourth
+    scan's end, all in order) through add_bulk in chunks of 8, against the
+    same events streamed with the merged slide. Returns the bulk run's ICP
+    launches."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io import synthetic_replay as trep
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    data, events = trep.bulk_stream(
+        syn.TrajectoryConfig(t_total=4.0, t_stationary=1.23),
+        syn.LidarModel(n_rows=64, n_cols=512), n_targets=512)
+    msgs = trep.bulk_messages(events)
+    imu = data["imu"]
+    runs = {}
+    for name in ("stream", "bulk"):
+        s = entry_sequencer(merge_marginalize=True)
+        s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+        icp_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        if name == "bulk":
+            s.add_bulk(msgs, chunk=BULK_MM_CHUNK)
+        else:
+            for _, kind, m in events:
+                if kind == "scan":
+                    s.add_scan(m["ts_header"], m["points"], m["t_rel"],
+                               m["valid"])
+                elif kind == "radar":
+                    s.add_radar(m["ts"], m["points"], m["doppler"],
+                                m["snr_db"])
+                else:
+                    s.add_odometry(m["ts"], m["q"], m["t"], m["cov"])
+        torch.cuda.synchronize()
+        runs[name] = (s, time.perf_counter() - t0, icp_cuda.LAUNCHES)
+    (b, b_s, launches), (s, s_s, _) = runs["bulk"], runs["stream"]
+    gap = bulk_gap(b, s, "bulk mixed")
+    codes = b.bulk_counts["codes"]
+    check(all(c > 0 for c in codes), f"bulk mixed: an event code never ran "
+          f"inside a chunk: {b.bulk_counts}")
+    n1 = b.cfg.n_gn_iters + 1
+    check(launches == n1 * b.scan_idx, f"bulk mixed: ICP kernel launched "
+          f"{launches} times in {b.scan_idx} scan steps")
+    print(f"[bulk] mixed chunks at entry widths: {len(msgs)} events "
+          f"({b.counters['scans']} scans, {b.counters['radar_frames']} radar "
+          f"frames, {b.counters['odom_msgs']} odometry messages), "
+          f"{b.bulk_counts['chunks']} chunks of {BULK_MM_CHUNK}, "
+          f"{b.bulk_counts['in_chunks']} events in chunks, "
+          f"{b.bulk_counts['streamed']} streamed; inside chunks by code: "
+          + ", ".join(f"{k} {c}" for k, c in zip(
+              ("scan", "radar declare", "radar attach", "odometry declare",
+               "odometry attach"), codes))
+          + f"; ICP kernel launches {launches} (= {n1} x {b.scan_idx}); "
+          f"{b_s:.2f} s bulk, {s_s:.2f} s streamed, each with its variants' "
+          f"warm-ups and captures; largest position gap {gap:.2e} m (gate "
+          f"{BULK_GAP}); counters, state_ts and _traj_src equal", flush=True)
+    return launches
+
+
+def bulk_corridor(streamed):
+    """(c) The corridor_radar_bulk row through add_bulk in chunks of 16
+    (scripts/dataset_evaluation.py:227-262): ATE < 0.20 m, RTE < 2.0%.
+    ``streamed``: the streamed row's (ATE, RTE)."""
+    from mimosa_tpu_torch.io.synthetic_replay import (bulk_messages,
+                                                      trajectory_ate)
+
+    s, data, events = corridor_radar()
+    imu = data["imu"]
+    s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    t0 = time.perf_counter()
+    s.add_bulk(bulk_messages(events), chunk=CORRIDOR_BULK_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(s.bulk_counts["chunks"] > 0, "corridor_radar_bulk ran no chunk")
+    ate, rte = trajectory_ate(s, data), row_rte(s, data)
+    print(f"[bulk] corridor_radar_bulk through add_bulk (chunks of "
+          f"{CORRIDOR_BULK_CHUNK}): ATE {ate:.5f} m (gate 0.20), RTE "
+          f"{rte:.3f}% (gate 2.0%); {CORRIDOR_BULK_JAX}; the row streamed "
+          f"(scoreboard): {streamed[0]:.5f} m / {streamed[1]:.3f}%; "
+          f"{s.bulk_counts['chunks']} chunks, {s.bulk_counts['in_chunks']} "
+          f"events in chunks, {s.bulk_counts['streamed']} streamed, "
+          f"{1e3 * wall / len(events):.2f} ms an event incl. first-call "
+          f"set-up and captures; counters {s.counters}", flush=True)
+    check(ate < 0.20, f"corridor_radar_bulk ATE {ate:.4f} m >= 0.20")
+    check(rte < 2.0, f"corridor_radar_bulk RTE {rte:.3f}% >= 2.0%")
+
+
+def bulk_phase(streamed_corridor):
+    """The bulk scheduler: (a) scan-only at bench.py's 128 x 1024 widths,
+    (b) mixed chunks at entry widths, (c) the corridor_radar_bulk row;
+    (d), bulk bag replay, is part of the replay phase. Returns the ICP
+    launches and profiled kernels of (a) and the launches of (b)."""
+    launches, ran = bulk_scans()
+    mixed = bulk_mixed()
+    bulk_corridor(streamed_corridor)
+    return launches, ran, mixed
+
+
+def chunk_graph_phase():
+    """``--chunk-graph``: the design the bulk scheduler did not take, one
+    CUDA graph recording a whole chunk of BULK_CHUNK scan steps, against
+    the per-step replays of a chunk and against streaming, at bench.py's
+    128 x 1024 widths (:func:`bench_sequencer`, the first 20 scans
+    streamed in each). Three Sequencers take the next BULK_CHUNK scans:
+    one through add_scans_bulk (per-step replays), one scan by scan
+    (staged one ahead), each with a CUDA event recorded before every step
+    it launches; the third packs and sends the same chunk (its replays
+    recorded instead of run), captures the chunk's steps into one graph
+    that reads the device slabs, and replays it. Prints the ms a chunk of
+    each (host clock, synchronized at the end), the device ms between
+    consecutive steps (median, min, max), the host ms the per-step chunk
+    spent dispatching, the capture seconds, the graph's memory, the ICP
+    launches it recorded, and whether the three give the same bits."""
+    from mimosa_tpu_torch.graph.captured import flatten, unflatten, write_back
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    data = syn.generate(syn.room_world(lx=30.0, ly=16.0, lz=6.0),
+                        syn.TrajectoryConfig(**BULK_TC),
+                        syn.LidarModel(n_rows=128, n_cols=1024), seed=0,
+                        imu_noise=0.01, range_noise=0.01)
+    scans, imu = data["scans"], data["imu"]
+    n_warm = min(20, len(scans) // 3)
+    chunk = scans[n_warm:n_warm + BULK_CHUNK]
+    seqs = []
+    for _ in range(3):
+        s = bench_sequencer()
+        s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+        for sc in scans[:n_warm]:
+            s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                       sc["valid"])
+        seqs.append(s)
+    a, st, g = seqs
+    torch.cuda.synchronize()
+
+    def timed_steps(s):
+        """Record a CUDA event before each step ``s`` launches."""
+        marks, run = [], s._run
+
+        def marked(key, inputs=()):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            run(key, inputs)
+        s._run = marked
+        return marks
+
+    def gaps(marks):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        ms = [x.elapsed_time(y) for x, y in zip(marks, marks[1:] + [end])]
+        return (statistics.median(ms), min(ms), max(ms))
+
+    marks = timed_steps(a)
+    t0 = time.perf_counter()
+    a.add_scans_bulk(chunk, chunk=BULK_CHUNK)
+    dispatch_ms = 1e3 * (time.perf_counter() - t0)
+    step_gaps = gaps(marks)
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    check(a.bulk_counts["chunks"] == 1, f"per-step: {a.bulk_counts}")
+
+    marks = timed_steps(st)
+    t0 = time.perf_counter()
+    staged = st.stage_scan(chunk[0]["ts_header"], chunk[0]["points"],
+                           chunk[0]["t_rel"], chunk[0]["valid"])
+    for i in range(len(chunk)):
+        nxt = None
+        cur = staged
+        if i + 1 < len(chunk):
+            sc = chunk[i + 1]
+            nxt = st.stage_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                                sc["valid"])
+        st.add_scan(cur["ts_header"], staged=cur)
+        staged = nxt
+    stream_gaps = gaps(marks)
+    stream_ms = 1e3 * (time.perf_counter() - t0)
+
+    recorded = []
+    g._run = lambda key, inputs=(): recorded.append((key, inputs))
+    t0 = time.perf_counter()
+    g.add_scans_bulk(chunk, chunk=BULK_CHUNK)
+    torch.cuda.synchronize()
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    del g._run
+    check(len(recorded) == BULK_CHUNK, f"{len(recorded)} steps recorded")
+    graphs = g.graphs
+    bufs = graphs._adopt(g._state())
+    spec = graphs._spec
+    fns = {key: g._steps[key] for key, _ in recorded}
+    graph = torch.cuda.CUDAGraph()
+    mem0 = torch.cuda.memory_reserved()
+    launches0 = icp_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        state = unflatten(bufs, spec)
+        for key, ins in recorded:
+            state = fns[key](state, *ins)
+        write_back(bufs, flatten(state)[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    recorded_launches = icp_cuda.LAUNCHES - launches0
+    icp_cuda.LAUNCHES = launches0
+    mem = (torch.cuda.memory_reserved() - mem0) / 2**20
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_ms = 1e3 * (time.perf_counter() - t0)
+    for k, v in zip(g._state_names, unflatten(bufs, spec)):
+        setattr(g, k, v)
+
+    def bits(s):
+        tr = s.trajectory
+        return (np.asarray([p for _, p, _ in tr]),
+                np.asarray([q for _, _, q in tr]))
+
+    ref = bits(a)
+    same = {name: all(np.array_equal(x, y) for x, y in zip(ref, bits(s)))
+            for name, s in (("streaming", st), ("chunk graph", g))}
+    n = BULK_CHUNK
+    print(f"[chunk-graph] 128x1024, {n} scan steps after a 20-scan warm-up "
+          f"(ms a chunk, host clock, one synchronize at the end; device ms "
+          f"between consecutive steps median / min / max): per-step "
+          f"replays (add_scans_bulk) {step_ms:.2f} ({1e3 * n / step_ms:.2f} "
+          f"scans/s; its host returned after {dispatch_ms:.2f} ms), "
+          f"{step_gaps[0]:.2f} / {step_gaps[1]:.2f} / {step_gaps[2]:.2f}; "
+          f"streaming, staged one ahead {stream_ms:.2f} "
+          f"({1e3 * n / stream_ms:.2f} scans/s), {stream_gaps[0]:.2f} / "
+          f"{stream_gaps[1]:.2f} / {stream_gaps[2]:.2f}; one graph: "
+          f"captured in {capture_s:.2f} s, {mem:.0f} MiB more reserved "
+          f"device memory, {recorded_launches} ICP launches recorded, pack "
+          f"and copy {pack_ms:.2f} ms + replay {graph_ms:.2f} ms a chunk "
+          f"({1e3 * n / (pack_ms + graph_ms):.2f} scans/s); the bits of the "
+          f"per-step replays: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+
 
 ONLINE_ARRIVAL = 0.01     # a scan reaches the online estimator 10 ms after its end
 ONLINE_GAP = 1e-6         # [m] online against the same events fed offline
@@ -1416,6 +1874,19 @@ def replay_phase():
         check(ate < REPLAY_ATE_GATE, f"replay ATE {ate:.4f} m >= "
               f"{REPLAY_ATE_GATE}")
         tracked = s.debug_records()[2:, 12]
+        # the same bag through the bulk scheduler (replay_bag(bulk=True),
+        # chunks of 32 events)
+        t0 = time.perf_counter()
+        sb = replay_bag(bag, cfgp, "/imu", "/points", radar_topic="/radar",
+                        max_scan_points=n_pts, verbose=False, bulk=True)
+        torch.cuda.synchronize()
+        bulk_wall = time.perf_counter() - t0
+        tb = sb.trajectory
+        bulk_ate = ev.ate(np.asarray([t for t, _, _ in tb]),
+                          np.asarray([p for _, p, _ in tb]), gt_ts, gt_p)
+        check(sb.counters == c, f"replay bulk counters {sb.counters}")
+        check(bulk_ate < REPLAY_ATE_GATE, f"replay bulk ATE {bulk_ate:.4f} m "
+              f">= {REPLAY_ATE_GATE}")
         t0 = time.perf_counter()
         cli = subprocess.run(
             [sys.executable, "-m", "mimosa_tpu_torch.io.replay", "--bag", bag,
@@ -1448,6 +1919,14 @@ def replay_phase():
           f"features tracked a step median "
           f"{statistics.median(tracked):.0f} min {tracked.min():.0f}",
           flush=True)
+    print(f"[replay] replay_bag(bulk=True) in process on the same bag: "
+          f"{1e3 * bulk_wall / sb.counters['scans']:.2f} ms a scan incl. "
+          f"bag decode, first-call set-up and captures; ATE {bulk_ate:.5f} m "
+          f"(gate {REPLAY_ATE_GATE}); {sb.bulk_counts['chunks']} chunks, "
+          f"{sb.bulk_counts['in_chunks']} events in chunks, "
+          f"{sb.bulk_counts['streamed']} streamed; largest position gap to "
+          f"the streamed replay (without the merged slide) "
+          f"{np.abs(positions(sb) - est_p).max():.2e} m", flush=True)
     print(f"[replay] CLI subprocess (python -m mimosa_tpu_torch.io.replay) "
           f"exit 0 in {cli_s:.1f} s; its line '{ate_line[0]}' and its TUM "
           f"file ({len(tr)} poses) equal the in-process run's", flush=True)
@@ -1483,6 +1962,9 @@ def main():
     if "--stage-split" in sys.argv[1:]:
         stage_split_phase()
         return 0
+    if "--chunk-graph" in sys.argv[1:]:
+        chunk_graph_phase()
+        return 0
     timings = kernel_phase(dev)
     clock = [("start", time.perf_counter())]
     launches, ran = slice_phase()
@@ -1491,8 +1973,11 @@ def main():
     clock.append(("photo", time.perf_counter()))
     mm_launches, mm_ran = multimodal_phase()
     clock.append(("multimodal", time.perf_counter()))
-    scoreboard_phase()
+    streamed = scoreboard_phase()
     clock.append(("scoreboard", time.perf_counter()))
+    bulk_launches, bulk_ran, bulk_mixed_launches = bulk_phase(
+        streamed["corridor_radar"])
+    clock.append(("bulk", time.perf_counter()))
     online_launches, online_replays = online_phase()
     clock.append(("online", time.perf_counter()))
     replay_launches, replay_replays = replay_phase()
@@ -1517,7 +2002,9 @@ def main():
                launches_online=online_launches,
                graph_replays_online=online_replays,
                launches_replay=replay_launches,
-               graph_replays_replay=replay_replays)
+               graph_replays_replay=replay_replays,
+               launches_bulk=bulk_launches, profiled_runs_bulk=bulk_ran,
+               launches_bulk_mixed=bulk_mixed_launches)
     print(json.dumps({"kernels": [rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -41,9 +41,13 @@ the trajectory / debug logs are device rings read once at the end. On the
 card each step variant is captured once as a CUDA graph and replayed
 (``graph/captured.py``); ``eager=True`` runs it op by op instead.
 
+The offline bulk scheduler (``add_bulk``, ``add_scans_bulk``) runs the
+steady-state events of a recorded sequence in chunks: one host pack and
+one copy per input slab a chunk, then each event replays its streaming
+variant with its inputs taken from rows of the device slabs.
+
 Not ported yet (the constructor refuses these settings): rescue, rematch
-and frozen-map localization. Nor is the bulk scheduler (``add_bulk``,
-``add_scans_bulk``).
+and frozen-map localization.
 """
 
 from __future__ import annotations
@@ -969,6 +973,10 @@ class Sequencer:
         # and sensor pose
         self.radar_cfg = self.odom_cfg = self._odom_prev = None
         self.timers = StageTimer()
+        # the bulk scheduler's record: chunks run, events run inside them
+        # (and how many of each event code), events it streamed
+        self.bulk_counts = dict(chunks=0, in_chunks=0, streamed=0,
+                                codes=[0] * 5)
         self._step_kw = dict(seq_cfg=seq_cfg, win_cfg=win_cfg,
                              map_cfg=map_cfg, geo_cfg=geo_cfg)
         self._steps = {}             # step variant -> its function
@@ -1202,16 +1210,17 @@ class Sequencer:
             return None
         return q[k], p[k]
 
-    def _ensure_log_capacity(self):
-        """Double the device trajectory / debug rings when full (the
-        captured steps are captured again for the new buffers)."""
-        S = self.traj_q.shape[0]
-        if max(self.scan_idx, len(self._traj_ts)) < S - 1:
-            return
-        self.traj_q, self.traj_p, self.debug_rec = (
-            torch.cat([a, torch.zeros_like(a)])
-            for a in (self.traj_q, self.traj_p, self.debug_rec))
-        logger.info("trajectory/debug log capacity grown to %d rows", 2 * S)
+    def _ensure_log_capacity(self, extra=0):
+        """Double the device trajectory / debug rings until ``extra`` more
+        rows fit (the captured steps are captured again for the new
+        buffers)."""
+        while max(self.scan_idx, len(self._traj_ts)) + extra >= \
+                self.traj_q.shape[0] - 1:
+            self.traj_q, self.traj_p, self.debug_rec = (
+                torch.cat([a, torch.zeros_like(a)])
+                for a in (self.traj_q, self.traj_p, self.debug_rec))
+            logger.info("trajectory/debug log capacity grown to %d rows",
+                        self.traj_q.shape[0])
 
     # ------------------------------------------------------------------ IMU
     def add_imu(self, ts, acc, gyro):
@@ -1258,20 +1267,9 @@ class Sequencer:
             self.counters["radar_dropped"] += 1
             return
 
-        # NaN targets and an SNR of -1e9 pad the frame; filter_targets
-        # drops them on the device
         n_pad = self.RADAR_BULK_PAD
         rpack = np.zeros((n_pad + 1, 5))
-        rpack[:n_pad, 0:3] = np.nan
-        rpack[:n_pad, 4] = -1e9
-        k = min(len(points_r), n_pad)
-        rpack[:k, 0:3] = np.asarray(points_r)[:k]
-        rpack[:k, 3] = np.asarray(doppler)[:k]
-        rpack[:k, 4] = (np.asarray(snr_db)[:k] if snr_db is not None
-                        else 1e9)
-        # the lever arm's omega: the mean gyro over the 20 ms exposure
-        _, rpack[n_pad, 1:4] = self.imu.mean_measurements(
-            max(ts - 0.02, self.imu.t_first), ts)
+        self._radar_rows(rpack, ts, points_r, doppler, snr_db)
 
         if ts <= self.last_state_ts:
             self._radar_ooo(ts, rpack, rcfg)
@@ -1296,6 +1294,22 @@ class Sequencer:
             self._run(("radar", "attach", rcfg), (self._put(rpack),))
         self._traj_ts.append(ts)
         self._traj_src.append(-1)
+
+    def _radar_rows(self, rpack, ts, points_r, doppler, snr_db):
+        """Fill a radar pack [RADAR_BULK_PAD + 1, 5] (zeros) with a frame:
+        its targets, NaN positions and an SNR of -1e9 padding the rest
+        (``filter_targets`` drops them on the device), and the lever arm's
+        omega, the mean gyro over the 20 ms exposure, in the scalar row."""
+        n_pad = self.RADAR_BULK_PAD
+        rpack[:n_pad, 0:3] = np.nan
+        rpack[:n_pad, 4] = -1e9
+        k = min(len(points_r), n_pad)
+        rpack[:k, 0:3] = np.asarray(points_r)[:k]
+        rpack[:k, 3] = np.asarray(doppler)[:k]
+        rpack[:k, 4] = (np.asarray(snr_db)[:k] if snr_db is not None
+                        else 1e9)
+        _, rpack[n_pad, 1:4] = self.imu.mean_measurements(
+            max(ts - 0.02, self.imu.t_first), ts)
 
     def _radar_ooo(self, ts, rpack, rcfg):
         """A radar frame older than the newest state: collapsed onto the
@@ -1433,58 +1447,24 @@ class Sequencer:
         points = np.asarray(points)
         t_rel = np.asarray(t_rel)
         c, n = self.cfg, self.cfg.max_scan_points
-        photo = self.photo_cfg is not None
-        ncol = _scan_ncol(c, photo)
-        if not photo:
-            intensity = None
+        ncol = _scan_ncol(c, self.photo_cfg is not None)
         with self.timers.stage("t_prepare"):
             if c.quantize_transfer:
-                if c.range_transfer:
-                    # lanes past the beam table would decode as ranges along
-                    # the unit-z pad direction, so refuse them
-                    n_lanes = min(-(-len(points) // c.point_skip), n)
-                    if n_lanes > self._ray_dirs_lanes:
-                        raise ValueError(
-                            f"range_transfer: scan has {n_lanes} post-skip "
-                            f"lanes but the ray_dirs table covers only "
-                            f"{self._ray_dirs_lanes}")
-                    scan_q, t_max = native.pack_range(
-                        points, t_rel, valid, intensity, c.point_skip, n,
-                        ncol, c.quant_range_res, c.quant_t_res,
-                        c.quant_int_res, dither=c.quant_dither,
-                        beam=self._beam_table)
-                else:
-                    scan_q, t_max = native.pack_scan(
-                        points, t_rel, valid, intensity, c.point_skip, n,
-                        ncol, c.quant_pos_res, c.quant_t_res,
-                        c.quant_int_res, dither=c.quant_dither)
-                raw = (points, t_rel, valid if valid is not None
-                       else np.isfinite(points).all(-1))
-                return dict(ts_header=float(ts_header),
-                            t_end=float(ts_header + t_max),
-                            scan_dev=self._put(scan_q, torch.int16),
-                            valid_dev=None, raw=raw)
-            if valid is None:
-                valid = np.isfinite(points).all(-1)
-            valid = np.asarray(valid, bool)
-            t_end = float(ts_header
-                          + (t_rel[valid].max() if valid.any() else 0.0))
-            raw = (points, t_rel, valid)  # full density for the map seed
-            k = c.point_skip
-            if k > 1:
-                points, t_rel, valid = points[::k], t_rel[::k], valid[::k]
-            pts, tp, vd = _pad_scan(points, t_rel, valid, n)
-            cols = [pts, np.where(vd, tp, 0.0)[:, None]]
-            if photo:
-                inten = np.zeros(n)
-                if intensity is not None:
-                    it = np.asarray(intensity)[::k][:n]
-                    inten[:len(it)] = np.nan_to_num(it)
-                cols.append(inten[:, None])
-            scan = np.concatenate(cols, 1)
-            return dict(ts_header=float(ts_header), t_end=t_end,
-                        scan_dev=self._put(scan),
-                        valid_dev=self._put(vd, torch.bool), raw=raw)
+                scan, vd = np.empty((n, ncol), np.int16), None
+            else:
+                scan, vd = np.empty((n, ncol)), np.empty(n, bool)
+            t_max = self._pack_scan_row(
+                dict(points=points, t_rel=t_rel, valid=valid,
+                     intensity=intensity), scan, vd)
+            # the full-density scan, for the map seed
+            raw = (points, t_rel, np.isfinite(points).all(-1)
+                   if valid is None else np.asarray(valid, bool))
+            return dict(ts_header=float(ts_header),
+                        t_end=float(ts_header + t_max),
+                        scan_dev=self._put(scan, torch.int16 if vd is None
+                                           else None),
+                        valid_dev=None if vd is None
+                        else self._put(vd, torch.bool), raw=raw)
 
     def add_scan(self, ts_header, points=None, t_rel=None, valid=None,
                  intensity=None, staged=None):
@@ -1553,6 +1533,358 @@ class Sequencer:
         self.state_ts.append(t_end)
         self._traj_ts.append(t_end)
         self._traj_src.append(self.scan_idx - 1)
+
+    # -------------------------------------------------------- bulk (offline)
+    # The JAX package runs a chunk as one lax.scan with a lax.switch on
+    # each event's code. The host knows every code when it packs the
+    # chunk, so here a code is the streaming variants it replays:
+    #   0 scan             ("scan", True, True)
+    #   1 radar declare    ("marginalize",), ("radar", "declare", rcfg)
+    #   2 radar attach     ("radar", "attach", rcfg)
+    #   3 odometry declare ("marginalize",), ("odom", True, ocfg)
+    #   4 odometry attach  ("odom", False, ocfg)
+
+    def add_scans_bulk(self, scans, chunk=32, tail_chunk=None):
+        """Offline batch replay of scans (the ``io.synthetic.generate``
+        scan layout: ``ts_header``, ``points``, ``t_rel``, optional
+        ``valid`` / ``intensity``), all of whose IMU is already in the
+        buffer: :meth:`add_bulk` on a scan-only stream."""
+        return self.add_bulk(scans, chunk=chunk, tail_chunk=tail_chunk)
+
+    def _pack_scan_row(self, sc, out_row, ptv_row):
+        """Pack scan dict ``sc`` (``points``, ``t_rel``, optional ``valid``
+        and ``intensity``) in the configured codec into ``out_row`` (and
+        its lane mask into ``ptv_row`` in the f32 codec), in place: a row
+        of a bulk chunk's slab, or :meth:`stage_scan`'s buffer. The
+        intensity column travels only for a photometric Sequencer. Returns
+        the largest point time over the valid lanes of the full-density
+        scan (0 where none is valid)."""
+        c, n = self.cfg, self.cfg.max_scan_points
+        photo = self.photo_cfg is not None
+        ncol = _scan_ncol(c, photo)
+        points, t_rel = np.asarray(sc["points"]), np.asarray(sc["t_rel"])
+        valid = sc.get("valid")
+        intensity = sc.get("intensity") if photo else None
+        if c.quantize_transfer:
+            if c.range_transfer:
+                # lanes past the beam table would decode as ranges along
+                # the unit-z pad direction, so refuse them
+                n_lanes = min(-(-len(points) // c.point_skip), n)
+                if n_lanes > self._ray_dirs_lanes:
+                    raise ValueError(
+                        f"range_transfer: scan has {n_lanes} post-skip "
+                        f"lanes but the ray_dirs table covers only "
+                        f"{self._ray_dirs_lanes}")
+                return native.pack_range(
+                    points, t_rel, valid, intensity, c.point_skip, n, ncol,
+                    c.quant_range_res, c.quant_t_res, c.quant_int_res,
+                    dither=c.quant_dither, beam=self._beam_table,
+                    out=out_row)[1]
+            return native.pack_scan(
+                points, t_rel, valid, intensity, c.point_skip, n, ncol,
+                c.quant_pos_res, c.quant_t_res, c.quant_int_res,
+                dither=c.quant_dither, out=out_row)[1]
+        valid = np.isfinite(points).all(-1) if valid is None \
+            else np.asarray(valid, bool)
+        t_max = t_rel[valid].max() if valid.any() else 0.0
+        k = c.point_skip
+        if k > 1:
+            points, t_rel, valid = points[::k], t_rel[::k], valid[::k]
+        pts, tp, vd = _pad_scan(points, t_rel, valid, n)
+        out_row[:, :3] = pts
+        out_row[:, 3] = np.where(vd, tp, 0.0)
+        if photo:
+            inten = np.zeros(n)
+            if intensity is not None:
+                it = np.asarray(intensity)[::k][:n]
+                inten[:len(it)] = np.nan_to_num(it)
+            out_row[:, 4] = inten
+        ptv_row[:] = vd
+        return t_max
+
+    def _host_slab(self, shape, dtype):
+        """A chunk's host slab (a tensor and its numpy view), pinned on the
+        card so that its copy neither waits nor needs a staging buffer. A
+        chunk takes a new one: the pinned allocator keeps it until its copy
+        has run, so no later chunk refills it while the copy is in
+        flight."""
+        t = torch.empty(shape, dtype=dtype,
+                        pin_memory=self.device.type == "cuda")
+        return t, t.numpy()
+
+    def _run_bulk_chunk(self, scans, t_ends):
+        """One chunk of steady-state scans (each eligible; ``t_ends`` their
+        end times, in order): :meth:`_run_bulk_chunk_mm` with code 0 for
+        each."""
+        self._run_bulk_chunk_mm(
+            [(0, sc, t, None) for sc, t in zip(scans, t_ends)], None, None)
+
+    def _run_bulk_chunk_mm(self, events, rcfg, ocfg):
+        """Pack, send and run one chunk. ``events``: (code, message,
+        declare / attach time, odometry anchor slot after the event's own
+        slide), in dispatch order, each eligible (:meth:`add_bulk`).
+
+        The rings grow for the whole chunk first (a ring grown mid-chunk
+        would capture every graph again). Slabs, packed on the host and
+        sent with one copy each: the scans [S, n, ncol] (and their masks
+        [S, n] in the f32 codec); the IMU [C, m+1, 8], or [C, m+3, 8] when
+        the chunk holds odometry: rows [0, m) a declare's segment, row m a
+        scan's scalar block, rows m..m+2 (columns 0-6) an odometry event's
+        pack (the scalars [slot, anchor slot, trajectory row], then the
+        previous and the current sensor pose); the radar frames
+        [F, RADAR_BULK_PAD + 1, 5] (NaN positions and an SNR of -1e9 pad
+        the targets; the scalar row holds the slot, the mean gyro over
+        20 ms and the trajectory row). The layouts are the streaming
+        packs, so each row feeds its variant's graph, whose static inputs
+        are then filled by copies on the device. The host bookkeeping of
+        the whole chunk comes after the replays."""
+        C = len(events)
+        cfg, K = self.cfg, self.win_cfg.K
+        m, n, R = cfg.max_imu_per_segment, cfg.max_scan_points, \
+            self.RADAR_BULK_PAD
+        codes = [code for code, _, _, _ in events]
+        n_scans = codes.count(0)
+        n_radar = codes.count(1) + codes.count(2)
+        n_odom = C - n_scans - n_radar
+        self.counters["scans"] += n_scans
+        if n_radar:
+            self.counters.setdefault("radar_frames", 0)
+            self.counters.setdefault("radar_dropped", 0)
+            self.counters["radar_frames"] += n_radar
+        if n_odom:
+            self.counters.setdefault("odom_msgs", 0)
+            self.counters.setdefault("odom_dropped", 0)
+            self.counters["odom_msgs"] += n_odom
+        self._ensure_log_capacity(C)
+        f32 = not cfg.quantize_transfer
+        ncol = _scan_ncol(cfg, self.photo_cfg is not None)
+        none = (None, None)
+        scan_t, scan_np = self._host_slab(
+            (n_scans, n, ncol), self.dtype if f32 else torch.int16) \
+            if n_scans else none
+        ptv_t, ptv_np = self._host_slab((n_scans, n), torch.bool) \
+            if n_scans and f32 else none
+        imu_t, imu_np = self._host_slab((C, m + (3 if n_odom else 1), 8),
+                                        self.dtype)
+        imu_np[:] = 0.0
+        rad_t, rad_np = self._host_slab((n_radar, R + 1, 5), self.dtype) \
+            if n_radar else none
+        if n_radar:
+            rad_np[:] = 0.0
+        scan_idx0, traj_idx0 = self.scan_idx, len(self._traj_ts)
+        cursor = self.last_state_ts
+        declared = []
+        odom_last = None        # (event index, sensor pose) of the last one
+        si = ri = 0
+        tmr = self.timers.stage
+        with tmr("t_bulk_pack"):
+            for k, (code, msg, t, aux) in enumerate(events):
+                if code in (0, 1, 3):
+                    # a declare after its slide: the segment from the newest
+                    # state, the new state in slot K - 1
+                    self.imu.segment_into(cursor, t, imu_np[k, :m])
+                if code == 0:
+                    self._pack_scan_row(msg, scan_np[si],
+                                        ptv_np[si] if f32 else None)
+                    imu_np[k, m, :6] = [K - 1, t - cursor, traj_idx0 + k,
+                                        scan_idx0 + si,
+                                        float(msg["ts_header"]) - cursor, 0]
+                    si += 1
+                elif code in (1, 2):
+                    self._radar_rows(rad_np[ri], t, msg["points_r"],
+                                     msg["doppler"], msg.get("snr_db"))
+                    rad_np[ri, R, 0] = K - 1
+                    rad_np[ri, R, 4] = traj_idx0 + k
+                    ri += 1
+                else:
+                    prev = odom_last[1] if odom_last is not None \
+                        else self._odom_prev
+                    pose = dict(q=np.asarray(msg["q"]),
+                                t=np.asarray(msg["p"]))
+                    imu_np[k, m, :3] = [K - 1, aux, traj_idx0 + k]
+                    imu_np[k, m + 1, :7] = np.concatenate([prev["q"],
+                                                           prev["t"]])
+                    imu_np[k, m + 2, :7] = np.concatenate([pose["q"],
+                                                           pose["t"]])
+                    odom_last = (k, pose)
+                if code in (0, 1, 3):
+                    declared.append(t)
+                    cursor = t
+        with tmr("t_bulk_put"):
+            scans, ptvs, imu, rad = (
+                None if x is None else x.to(self.device, non_blocking=True)
+                for x in (scan_t, ptv_t, imu_t, rad_t))
+        with tmr("t_bulk_dispatch"):
+            si = ri = 0
+            for k, code in enumerate(codes):
+                if code == 0:
+                    self._run(("scan", True, True),
+                              (scans[si], None if ptvs is None else ptvs[si],
+                               imu[k, :m + 1]))
+                    si += 1
+                    continue
+                if code in (1, 3):
+                    self._run(("marginalize",))
+                seg = (imu[k, :m],) if code in (1, 3) else ()
+                if code in (1, 2):
+                    self._run(("radar", "declare" if code == 1 else "attach",
+                               rcfg), seg + (rad[ri],))
+                    ri += 1
+                else:
+                    self._run(("odom", code == 3, ocfg),
+                              seg + (imu[k, m:m + 3, :7],))
+        # the host bookkeeping of the whole chunk
+        self.scan_idx += n_scans
+        self.state_ts = (self.state_ts + declared)[len(declared):]
+        if declared:
+            self.last_state_ts = declared[-1]
+        sj = scan_idx0
+        for code, _, t, _ in events:
+            self._traj_ts.append(t)
+            self._traj_src.append(sj if code == 0 else -1)
+            sj += code == 0
+        if odom_last is not None:
+            # the anchor: the chunk's last odometry pose, in the newest slot
+            # at its event, shifted by the declares after it
+            k0, pose = odom_last
+            n_after = sum(1 for c in codes[k0 + 1:] if c in (0, 1, 3))
+            self._odom_prev = dict(slot=K - 1 - n_after, **pose)
+        elif self._odom_prev is not None:
+            self._odom_prev["slot"] -= len(declared)
+        b = self.bulk_counts
+        b["chunks"] += 1
+        b["in_chunks"] += C
+        for code in codes:
+            b["codes"][code] += 1
+
+    def add_bulk(self, msgs, chunk=32, radar_cfg=None, odom_cfg=None,
+                 tail_chunk=None):
+        """Offline replay of a recorded four-modality sequence, in chunks.
+
+        ``msgs``: dicts, in any order. ``kind="scan"`` (the default): the
+        :meth:`add_scans_bulk` scan layout. ``kind="radar"``: ``ts``,
+        ``points_r`` [N,3] in the radar frame, ``doppler`` [N], optional
+        ``snr_db`` [N]. ``kind="odom"``: ``ts``, ``q`` [4] wxyz, ``p`` [3]
+        (the sensor's pose), optional ``cov6``. All their IMU must be in
+        the buffer already. Events run in dispatch order, a scan at its
+        end time and a radar frame or an odometry message at its own
+        (ties: scans, radar, odometry), the order in which the streaming
+        replay releases them.
+
+        The host simulates the streaming decisions from each event on
+        (the declare and attach gates, the IMU coverage, the lag and the
+        odometry anchor slot) to find the longest run of events that the
+        steady-state paths take with a full window. Such a run executes in
+        chunks of ``chunk`` events (:meth:`_run_bulk_chunk_mm`), then, with
+        ``tail_chunk``, in chunks of that size; what is left of it, and
+        every event that needs another path (initialization, the window
+        filling, a same-key scan, a late event, missing IMU, a slide the
+        lag forces, an odometry anchor set afresh or a message the
+        D-optimality gate rejects), goes through :meth:`add_scan`,
+        :meth:`add_radar` or :meth:`add_odometry` one by one. Each chunk
+        gives the bits of the streaming path with ``merge_marginalize``."""
+        rcfg = radar_cfg or self.radar_cfg or rad.RadarConfig()
+        self.radar_cfg = rcfg
+        ocfg = odom_cfg or self.odom_cfg or odo.OdometryConfig()
+        self.odom_cfg = ocfg
+        chunk = max(2, int(chunk))
+        items = []
+        for m_ in msgs:
+            kind = m_.get("kind", "scan")
+            if kind == "scan":
+                items.append((self._scan_t_end(m_), 0, m_))
+            elif kind == "radar":
+                items.append((float(m_["ts"]), 1, m_))
+            elif kind == "odom":
+                items.append((float(m_["ts"]), 2, m_))
+            else:
+                raise ValueError(f"add_bulk got unknown kind={kind!r}")
+        items.sort(key=lambda e: (e[0], e[1]))
+        K = self.win_cfg.K
+        lag = self.cfg.lag_secs
+        min_imu = self.cfg.min_imu_between_states
+        i = 0
+        while i < len(items):
+            # the longest eligible run from i: (code, message, time,
+            # odometry anchor slot)
+            run = []
+            cursor = self.last_state_ts
+            sim_sts = list(self.state_ts)
+            prev_o = self._odom_prev
+            sim_oslot = prev_o["slot"] if prev_o is not None else None
+            if self.initialized and self.n_active == K:
+                j = i
+                while j < len(items):
+                    t_disp, mkind, m_ = items[j]
+                    lag_ok = lag <= 0 or sim_sts[0] >= t_disp - lag
+                    if not (t_disp > cursor
+                            and self.imu.covers(cursor, t_disp)):
+                        break
+                    declare = self.imu.count_between(cursor, t_disp) >= \
+                        min_imu
+                    if mkind == 0:
+                        if not declare or not lag_ok:
+                            break         # same-key scan or a lag slide
+                        run.append((0, m_, t_disp, None))
+                    elif mkind == 1:
+                        if declare:
+                            if not lag_ok:
+                                break
+                            run.append((1, m_, t_disp, None))
+                        else:
+                            run.append((2, m_, t_disp, None))
+                            j += 1
+                            continue
+                    else:
+                        cov = m_.get("cov6")
+                        if cov is not None and odo.d_optimality(
+                                np.asarray(cov)) > ocfg.max_d_optimality:
+                            break         # add_odometry drops it
+                        if sim_oslot is None:
+                            break         # the first anchor
+                        pslot = sim_oslot - 1 if declare else sim_oslot
+                        if pslot < 0 or (declare and not lag_ok):
+                            break         # the anchor set afresh, or lag
+                        run.append((3 if declare else 4, m_, t_disp, pslot))
+                        sim_oslot = K - 1
+                        if declare:
+                            sim_sts = sim_sts[1:] + [t_disp]
+                            cursor = t_disp
+                        j += 1
+                        continue
+                    if sim_oslot is not None:
+                        sim_oslot -= 1    # the declare's slide
+                    sim_sts = sim_sts[1:] + [t_disp]
+                    cursor = t_disp
+                    j += 1
+            sizes = [chunk] + ([max(2, int(tail_chunk))] if tail_chunk
+                               else [])
+            for csize in sizes:
+                while len(run) >= csize:
+                    batch, run = run[:csize], run[csize:]
+                    if all(code == 0 for code, _, _, _ in batch):
+                        self._run_bulk_chunk([m_ for _, m_, _, _ in batch],
+                                             [t for _, _, t, _ in batch])
+                    else:
+                        self._run_bulk_chunk_mm(batch, rcfg, ocfg)
+                    i += csize
+            # stream the rest of the run, or the one event that needs
+            # another path
+            end = max(i + len(run), i + 1)
+            while i < min(end, len(items)):
+                _, mkind, m_ = items[i]
+                if mkind == 1:
+                    self.add_radar(m_["ts"], m_["points_r"], m_["doppler"],
+                                   m_.get("snr_db"), radar_cfg=rcfg)
+                elif mkind == 2:
+                    self.add_odometry(m_["ts"], m_["q"], m_["p"],
+                                      m_.get("cov6"), odom_cfg=ocfg)
+                else:
+                    self.add_scan(m_["ts_header"], m_["points"],
+                                  m_["t_rel"], m_.get("valid"),
+                                  intensity=m_.get("intensity"))
+                self.bulk_counts["streamed"] += 1
+                i += 1
 
     # --------------------------------------------------------------- helpers
     def _enforce_lag(self, newest_ts):

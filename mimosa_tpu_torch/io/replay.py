@@ -15,9 +15,14 @@ ATE/RTE (the dataset_evaluation.py metrics). It runs on the first CUDA
 device, the Sequencer's steps captured as CUDA graphs, unless ``--device``
 names another (``--device cpu``), and raises where there is no card.
 
-Not ported yet, each refused with ``NotImplementedError``: ``--bulk``
-(ROADMAP item 12), ``--two-pass`` and ``--smooth`` (item 13),
-``--debug-stream`` and ``--stream-every`` (item 15).
+``--bulk`` replays offline through the Sequencer's bulk scheduler
+(``Sequencer.add_bulk``): the decoded scans, radar frames and odometry
+messages gather in a batch that runs in chunks of 32 events once the IMU
+has passed the newest of them.
+
+Not ported yet, each refused with ``NotImplementedError``: ``--two-pass``
+and ``--smooth`` (ROADMAP item 13), ``--debug-stream`` and
+``--stream-every`` (item 15).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from mimosa_tpu_torch import require_cuda
 
 # options of the JAX package's replay that the port refuses, with the
 # ROADMAP item that ports each
-NOT_PORTED = {"bulk": 12, "two_pass": 13, "smooth": 13, "debug_stream": 15,
+NOT_PORTED = {"two_pass": 13, "smooth": 13, "debug_stream": 15,
               "stream_every": 15}
 
 
@@ -190,8 +195,8 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
                start_offset=0.0, duration=None, max_scan_points=None,
                verbose=True, device=None, step_control=None,
                ouster_metadata=None, two_pass=False, smooth=False,
-               debug_stream=None, bulk=False, range_transfer=False,
-               **seq_overrides):
+               debug_stream=None, bulk=False, bulk_chunk=32,
+               range_transfer=False, **seq_overrides):
     """Replay a bag (or a glob of bags) through a port Sequencer on
     ``device`` (default: the first CUDA device; raises where there is
     none) and return the Sequencer.
@@ -204,13 +209,19 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
     checked against the table and the replay REFUSES if the bag's cloud
     does not follow the reconstruction model.
 
-    ``bulk``, ``two_pass``, ``smooth`` and ``debug_stream`` are not ported
-    yet and raise NotImplementedError."""
-    for option, on in (("bulk", bulk), ("two_pass", two_pass),
-                       ("smooth", smooth),
+    ``bulk=True``: offline replay through ``Sequencer.add_bulk`` in
+    ``bulk_chunk``-event chunks (the scheduler's eligibility rules decide
+    what streams); it gives the bits of the streaming replay with
+    ``merge_marginalize=True``, and takes no ``step_control``.
+
+    ``two_pass``, ``smooth`` and ``debug_stream`` are not ported yet and
+    raise NotImplementedError."""
+    for option, on in (("two_pass", two_pass), ("smooth", smooth),
                        ("debug_stream", debug_stream is not None)):
         if on:
             _refuse(option)
+    if bulk and step_control is not None:
+        raise ValueError("bulk replay is non-interactive")
     device = require_cuda() if device is None else torch.device(device)
 
     from mimosa_tpu_torch import native
@@ -327,7 +338,22 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
     # arrival seq, payload).
     pending = []
     pend_seq = 0
+    batch = []        # bulk: decoded events (message, dispatch time)
     n_proc = 0
+
+    def flush_bulk(force=False):
+        """Run the batch through add_bulk once it holds ``bulk_chunk``
+        events and the IMU has passed the newest one's dispatch time (the
+        collection delay, applied chunk-wise), or at the end."""
+        nonlocal n_proc
+        if not batch or (not force and (
+                len(batch) < bulk_chunk or s.imu.t_last is None
+                or s.imu.t_last < max(t for _, t in batch))):
+            return
+        s.add_bulk([b for b, _ in batch], chunk=bulk_chunk)
+        n_proc += sum(1 for b, _ in batch if b.get("kind", "scan") == "scan")
+        batch.clear()
+
     t_start = time.time()
     for topic, _, t, m in msgs:
         if t < t0 or t > t_stop:
@@ -337,6 +363,8 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
                 skip_left["imu"] -= 1
                 continue
             s.add_imu(m["stamp"] + ts_off["imu"], m["acc"], m["gyro"])
+            if bulk:
+                flush_bulk()
             while pending and s.imu.t_last is not None and \
                     pending[0][0] <= s.imu.t_last:
                 _, kind_, _, payload = heapq.heappop(pending)
@@ -373,6 +401,13 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
             else:
                 ok = pc2.point_filters(d["points"], d["intensity"],
                                        d["ring"], **filters)
+            if bulk:
+                tv = d["t_rel"][ok]
+                batch.append((dict(ts_header=stamp, points=d["points"],
+                                   t_rel=d["t_rel"], valid=ok,
+                                   intensity=d["intensity"]),
+                              float(stamp + (tv.max() if tv.size else 0.0))))
+                continue
             # stage at arrival: the pack + host-to-device copy overlap the
             # device work of earlier scans while this one waits for IMU
             # coverage
@@ -390,6 +425,11 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
                         .get("is_exposure_compensated", True)):
                 ts_r += float(raw_cfg["radar"]["manager"]
                               .get("frame_ms", 0.0)) * 1e-3 / 2.0
+            if bulk:
+                batch.append((dict(kind="radar", ts=ts_r,
+                                   points_r=d["points"], doppler=d["doppler"],
+                                   snr_db=d["snr_db"]), ts_r))
+                continue
             heapq.heappush(pending,
                            (ts_r, 1, pend_seq, (ts_r, d["points"],
                                                 d["doppler"], d["snr_db"])))
@@ -399,9 +439,15 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
                 skip_left["odom"] -= 1
                 continue
             ts_o = m["stamp"] + ts_off["odom"]
+            if bulk:
+                batch.append((dict(kind="odom", ts=ts_o, q=m["q"], p=m["p"],
+                                   cov6=m["pose_cov"]), ts_o))
+                continue
             heapq.heappush(pending, (ts_o, 2, pend_seq,
                                      (ts_o, m["q"], m["p"], m["pose_cov"])))
             pend_seq += 1
+    if bulk:
+        flush_bulk(force=True)
     if s.device.type == "cuda":
         torch.cuda.synchronize(s.device)
     wall = time.time() - t_start
@@ -448,7 +494,9 @@ def main(argv=None):
                          "for the beam table; refuses if the bag's cloud "
                          "does not follow the reconstruction model)")
     ap.add_argument("--bulk", action="store_true",
-                    help="not ported yet (ROADMAP item 12)")
+                    help="offline batch mode: the scans, radar frames and "
+                         "odometry messages run in chunks of 32 events "
+                         "through Sequencer.add_bulk")
     ap.add_argument("--two-pass", action="store_true",
                     help="not ported yet (ROADMAP item 13)")
     ap.add_argument("--smooth", action="store_true",
@@ -478,7 +526,7 @@ def main(argv=None):
                        step_control=StepControl() if args.interactive
                        else None,
                        ouster_metadata=args.ouster_metadata,
-                       range_transfer=args.range_transfer)
+                       bulk=args.bulk, range_transfer=args.range_transfer)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")

@@ -13,6 +13,7 @@ geometric and photometric scoreboard rows use
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -139,6 +140,60 @@ def four_modality_stream(tc, lm, n_targets=96):
         reinject=set(range(5, n, 6)), swap={n // 2 - 3, n // 2 + 3},
         duplicate={n // 2})
     return data, events
+
+
+ATTACH_DELAY = 2e-3      # [s] under one 200 Hz IMU period
+
+
+def bulk_stream(tc, lm, n_targets=96):
+    """(data, events) of an in-order LiDAR + radar + odometry + IMU
+    sequence that takes every path of the bulk scheduler's chunks: the
+    scans and IMU of ``generate`` in the room (seed 0, noise-free), 20 Hz
+    radar frames of ``n_targets`` targets and 10 Hz odometry (covariance
+    1e-4 I) from the same trajectory, each odometry message 15 ms after a
+    radar frame and 50 ms from a scan's end (so it declares its own
+    state), and, 2 ms after the end of every fourth scan from the fifth on
+    (``ATTACH_DELAY``, less than one IMU period), a copy of the radar frame
+    nearest in time and a noise-free odometry message: both attach to the
+    scan's state. No event arrives late (:func:`multimodal_events` with no
+    late arrival). Pass ``tc`` with ``t_stationary`` off the LiDAR's 0.1 s
+    grid (e.g. 1.23 s), so that the radar clock runs out of phase with the
+    LiDAR's."""
+    data = syn.generate(syn.room_world(), tc, lm, seed=0)
+    traj = syn.make_trajectory(tc)
+    radar = syn.generate_radar(traj, tc, rate=20.0, n_targets=n_targets,
+                               seed=0)
+    odom = syn.generate_odometry(
+        traj, dataclasses.replace(tc, t_stationary=tc.t_stationary + 0.13),
+        rate=10.0, seed=0)
+    radar_ts = np.array([fr["ts"] for fr in radar])
+    scans = data["scans"]
+    for k in range(4, len(scans), 4):
+        t = seq.Sequencer._scan_t_end(scans[k]) + ATTACH_DELAY
+        fr = radar[int(np.argmin(np.abs(radar_ts - t)))]
+        radar.append(dict(fr, ts=t))
+        tt = np.array([t])
+        odom.append(dict(ts=t, q=traj["quat"](tt)[0], t=traj["pos"](tt)[0],
+                         cov=np.eye(6) * 1e-4))
+    radar.sort(key=lambda fr: fr["ts"])
+    odom.sort(key=lambda m: m["ts"])
+    return data, multimodal_events(data, radar, odom)
+
+
+def bulk_messages(events):
+    """The messages of :func:`multimodal_events`' events in
+    ``Sequencer.add_bulk``'s layout (``kind`` "scan", "radar" or "odom")."""
+    out = []
+    for _, kind, m in events:
+        if kind == "scan":
+            out.append(m)
+        elif kind == "radar":
+            out.append(dict(kind="radar", ts=m["ts"], points_r=m["points"],
+                            doppler=m["doppler"], snr_db=m["snr_db"]))
+        else:
+            out.append(dict(kind="odom", ts=m["ts"], q=m["q"], p=m["t"],
+                            cov6=m["cov"]))
+    return out
 
 
 def feed_event(s, data, event, imu_i=0):

@@ -151,20 +151,34 @@ def _ptr(a):
     return None if a is None else a.ctypes.data
 
 
+def _out(out, n_out, ncol):
+    """The int16 [n_out, ncol] array a pack writes: ``out`` (a row of a
+    bulk chunk's slab, checked) or a new one."""
+    if out is None:
+        return np.empty((n_out, ncol), np.int16)
+    if out.dtype != np.int16 or out.shape != (n_out, ncol) \
+            or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous int16 [{n_out}, "
+                         f"{ncol}] array, got {out.dtype} {out.shape}")
+    return out
+
+
 def pack_scan(points, t_rel, valid, intensity, skip, n_out, ncol,
-              pos_res, t_res, int_res, dither=True):
+              pos_res, t_res, int_res, dither=True, out=None):
     """Fused int16 xyz pack of one scan: every ``skip``-th point, padded or
     truncated to ``n_out`` rows of (x, y, z, t[, intensity]) quantized at
     the given resolutions, with ``t == -32768`` marking invalid lanes and,
     with ``dither``, a per-lane subtractive dither of +-0.5 LSB on the
     positions. Returns (out int16 [n_out, ncol], t_end): t_end is the
-    largest t over the valid finite lanes of the full-density input."""
+    largest t over the valid finite lanes of the full-density input.
+    ``out`` (optional) receives the pack in place: the bulk scheduler packs
+    a chunk's scans into the rows of one slab."""
     if ncol not in (4, 5):
         raise ValueError(f"pack_scan packs 4 or 5 columns, not {ncol}")
     lib = build()
     points, t_rel, vd, inten = _inputs(points, t_rel, valid, intensity,
                                        ncol > 4, skip)
-    out = np.empty((n_out, ncol), np.int16)
+    out = _out(out, n_out, ncol)
     t_end = ctypes.c_double(0.0)
     lib.mimosa_pack_scan(
         _ptr(points), _DT[points.dtype], _ptr(t_rel), _DT[t_rel.dtype],
@@ -175,19 +189,19 @@ def pack_scan(points, t_rel, valid, intensity, skip, n_out, ncol,
 
 
 def pack_range(points, t_rel, valid, intensity, skip, n_out, ncol,
-               r_res, t_res, int_res, dither=True, beam=None):
+               r_res, t_res, int_res, dither=True, beam=None, out=None):
     """Fused int16 range-image pack (the range_transfer codec): rows of
     (range, t[, intensity]), the range |p| for a radial beam model or
     s = dot(p - offset, dir) with ``beam`` (f32 [n_out, 6]: unit direction
     then offset of each packed lane, the affine Ouster model), quantized
-    along the ray with the x-axis dither salt. Sentinel and t_end as
-    :func:`pack_scan`."""
+    along the ray with the x-axis dither salt. Sentinel, t_end and ``out``
+    as :func:`pack_scan`."""
     if ncol not in (2, 3):
         raise ValueError(f"pack_range packs 2 or 3 columns, not {ncol}")
     lib = build()
     points, t_rel, vd, inten = _inputs(points, t_rel, valid, intensity,
                                        ncol > 2, skip)
-    out = np.empty((n_out, ncol), np.int16)
+    out = _out(out, n_out, ncol)
     bm = None
     if beam is not None:
         bm = np.ascontiguousarray(beam, np.float32)

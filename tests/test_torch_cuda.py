@@ -1,7 +1,9 @@
 """The port's CUDA ICP kernel against its plain PyTorch version, and the
 steps captured as CUDA graphs against the same steps run op by op, on the
-card: the scan step, the photometric scan step, and every variant of the
-four-modality stream (radar, odometry, late scans and radar frames).
+card: the scan step, the photometric scan step, every variant of the
+four-modality stream (radar, odometry, late scans and radar frames), and
+the bulk scheduler's chunks (bits of merged streaming, no host sync in a
+chunk of captured variants, the ICP launches a chunk).
 
 Every test here needs an NVIDIA GPU and nvcc (``cuda`` marker) and skips
 without one (but the native pack's build-failure test, which needs g++
@@ -978,3 +980,105 @@ def test_checkpoint_between_replays_resumes_bitwise(room, tmp_path):
     _assert_states_equal(_state(s), first)
     np.testing.assert_array_equal(
         np.asarray([p for _, p, _ in s.trajectory]), traj)
+
+
+# ------------------------------------------------ the bulk scheduler
+
+def _bulk_replay(s, data, msgs, bulk, chunk=8):
+    """All IMU first, then ``msgs`` through add_bulk, or streamed in
+    add_bulk's dispatch order (time, then scan / radar / odometry)."""
+    from mimosa_tpu_torch.graph.sequencer import Sequencer
+
+    imu = data["imu"]
+    s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    if bulk:
+        s.add_bulk(msgs, chunk=chunk)
+        return s
+    code = {"scan": 0, "radar": 1, "odom": 2}
+    for _, _, m in sorted(
+            ((Sequencer._scan_t_end(m) if m.get("kind", "scan") == "scan"
+              else float(m["ts"])), code[m.get("kind", "scan")], m)
+            for m in msgs):
+        kind = m.get("kind", "scan")
+        if kind == "radar":
+            s.add_radar(m["ts"], m["points_r"], m["doppler"], m["snr_db"])
+        elif kind == "odom":
+            s.add_odometry(m["ts"], m["q"], m["p"], m["cov6"])
+        else:
+            s.add_scan(m["ts_header"], m["points"], m["t_rel"], m["valid"])
+    return s
+
+
+def _assert_bulk_bitwise(b, s):
+    assert b.bulk_counts["chunks"] > 0
+    assert b.counters == s.counters and b.state_ts == s.state_ts
+    assert b._traj_ts == s._traj_ts and b._traj_src == s._traj_src
+    for (_, pb, qb), (_, ps, qs) in zip(b.trajectory, s.trajectory):
+        np.testing.assert_array_equal(pb, ps)
+        np.testing.assert_array_equal(qb, qs)
+
+
+def test_scan_only_bulk_equals_merged_streaming_on_the_card(room):
+    """Chunks of captured scan steps replayed from device slabs give the
+    bits of the captured streaming path with the merged slide."""
+    b = _bulk_replay(_room_sequencer(False), room, room["scans"], True)
+    s = _bulk_replay(_room_sequencer(False, merge_marginalize=True), room,
+                     room["scans"], False)
+    assert ("scan", True, True) in b.graphs.graphs
+    _assert_bulk_bitwise(b, s)
+
+
+def test_mixed_bulk_equals_merged_streaming_on_the_card(dev):
+    """synthetic_replay.bulk_stream (radar and odometry declares and
+    attaches inside chunks): bulk and merged streaming, both captured, give
+    the same bits."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io import synthetic_replay as trep
+
+    data, events = trep.bulk_stream(
+        syn.TrajectoryConfig(t_total=2.5, t_stationary=1.23),
+        syn.LidarModel())
+    msgs = trep.bulk_messages(events)
+    b = _bulk_replay(_room_sequencer(False), data, msgs, True)
+    s = _bulk_replay(_room_sequencer(False, merge_marginalize=True), data,
+                     msgs, False)
+    assert all(n > 0 for n in b.bulk_counts["codes"]), b.bulk_counts
+    _assert_bulk_bitwise(b, s)
+
+
+def test_a_captured_chunk_makes_no_host_sync_and_launches_4_per_scan(room):
+    """A chunk whose variants are captured already: no host sync anywhere
+    in it (pack, the slabs' copies, the replays, the bookkeeping), the ICP
+    kernel launched (n_gn_iters + 1) times per scan step by the count and
+    by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = _room_sequencer(False)
+    scans = room["scans"]
+    imu = room["imu"]
+    s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    # initialization, the K = 6 window's fill, and one chunk: its first
+    # scan warms the merged scan variant up, its second captures it
+    n0 = 6 + 4
+    s.add_scans_bulk(scans[:n0], chunk=4)
+    assert s.bulk_counts["chunks"] == 1
+    assert ("scan", True, True) in s.graphs.graphs
+    torch.cuda.synchronize()
+    chunk = scans[n0:n0 + 4]
+    launches, captures = icp_cuda.LAUNCHES, s.graphs.captures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.add_scans_bulk(chunk, chunk=4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert s.bulk_counts["chunks"] == 2 and s.bulk_counts["in_chunks"] == 8
+    assert s.bulk_counts["streamed"] == n0 - 4
+    assert s.graphs.captures == captures
+    n1 = s.cfg.n_gn_iters + 1
+    assert icp_cuda.LAUNCHES - launches == n1 * len(chunk)
+    ran = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "icp_linearize_kernel" in e.name)
+    assert ran == n1 * len(chunk)

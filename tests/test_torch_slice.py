@@ -269,6 +269,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'io.online', 'io.rosbag', 'io.rosbag_writer', 'io.pointcloud2', "
         "'config.loader', 'utils.checkpoint', 'io.replay'):\n"
         "    assert 'mimosa_tpu_torch.' + n in names, names\n"
+        # the bulk scheduler, beside the streaming paths
+        "from mimosa_tpu_torch.graph.sequencer import Sequencer\n"
+        "for f in ('add_bulk', 'add_scans_bulk', '_run_bulk_chunk', "
+        "'_run_bulk_chunk_mm', '_pack_scan_row'):\n"
+        "    assert callable(getattr(Sequencer, f)), f\n"
+        "from mimosa_tpu_torch.io import replay, synthetic_replay\n"
+        "assert 'bulk' not in replay.NOT_PORTED\n"
+        "assert callable(synthetic_replay.bulk_stream)\n"
         "assert len(names) > 12, names\n"
         "assert not bad, bad\n"
         # PyYAML only inside config.loader.load_reference_yaml
@@ -296,15 +304,23 @@ def test_sequencer_refuses_unported_settings():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Without a device the Sequencer and the replay take the first CUDA
-    device and raise where there is none; device="cpu" is the caller's
-    explicit choice."""
+    """Without a device the Sequencer (the streaming entry points and the
+    bulk scheduler, ``add_bulk``, alike), the replay and the bag replay in
+    bulk mode take the first CUDA device and raise where there is none;
+    device="cpu" is the caller's explicit choice."""
+    from mimosa_tpu_torch.io import replay as treplay
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tseq.Sequencer()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trep.run(verbose=False)
-    assert tseq.Sequencer(device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        treplay.replay_bag("absent.bag", "absent.yaml", "/imu", "/points",
+                           bulk=True)
+    s = tseq.Sequencer(device="cpu")
+    s.add_bulk([])
+    assert s.device == torch.device("cpu") and s.bulk_counts["chunks"] == 0
 
 
 def test_replay_cli_defaults_to_the_card():
