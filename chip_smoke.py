@@ -120,6 +120,28 @@ of JAX or of the JAX package.
    < 0.08 m, the same counters), then
    ``python -m mimosa_tpu_torch.io.replay`` as a subprocess on the same
    files, which must exit 0 with the same ATE line and TUM file;
+13. refine: the offline refinement (a Sequencer with ``freeze_map`` started
+   from a copy of another's map, ``init_map``; ``graph/refine.smooth`` over
+   ``parallel/window_shard``): (a) the scoreboard's room_noisy_two_pass
+   and room_noisy_smooth (``scripts/dataset_evaluation.py:278-281``)
+   through ``synthetic_replay.run(two_pass=True[, smooth=True])``,
+   captured: ATE < 0.080 m and RTE < 0.5% (the smoothed trajectory's for
+   room_noisy_smooth) beside the JAX package's values and this run's
+   one-pass room_noisy; each pass's map digest before its first scan and
+   after its last and its keyframes' after its first and its last: pass 2
+   starts from pass 1's final map and leaves it and its keyframe
+   unchanged, pass 1's map is unchanged, the two share no storage; pass
+   2's ICP launches (n_gn_iters + 1 a scan step) and the profiler's count
+   over its last 3 scan steps; ms a scan of each pass (synchronized); the
+   smoother's K0, host seconds and peak device memory; (b) the replay
+   phase's bag through ``replay_bag(two_pass=True, smooth=True)`` in this
+   process, with ``bulk=True`` (pass 2 within 1e-6 m of streamed pass 2),
+   and the CLI with ``--two-pass --smooth --out`` as a subprocess (exit 0,
+   its ATE lines and smoothed TUM file equal to the in-process run's);
+   pass 2's and the smoothed ATE < 0.08 m; the smoother alone: K0 by row
+   kind, host seconds, device busy (profiler), peak device memory, the
+   same bits as the replay's call; (c) the smoother on the CPU on the same
+   inputs: positions within 1e-4 m of the card's;
 11. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
    the scan step, printing host ms a scan step by stage (no JSON lines);
@@ -132,9 +154,9 @@ of JAX or of the JAX package.
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
 of the kernel (launches on the entry-width, photometric, four-modality,
-bulk, online and bag-replay paths, each counted from 0 around its run,
-error, times and bound), and the line before that the seconds each phase
-took.
+bulk, online, bag-replay and refinement paths, each counted from 0 around
+its run, error, times and bound), and the line before that the seconds
+each phase took.
 """
 
 import bisect
@@ -1008,11 +1030,11 @@ def stage_split_phase():
 
 def scoreboard_phase():
     """The scoreboard rows on the card (captured steps), each under its
-    gate. Returns the streamed rows' (ATE, RTE) by name."""
+    gate. Returns every row's (ATE, RTE) by name."""
     from mimosa_tpu_torch.io import synthetic as syn
     from mimosa_tpu_torch.io import synthetic_replay
 
-    ates = {}
+    rows = {}
     for name, kw, gate, rte_gate in SCOREBOARD:
         kw = dict(kw)
         if "tc" in kw:
@@ -1039,17 +1061,16 @@ def scoreboard_phase():
         if rte_gate is not None:
             # a NaN RTE (a path under the 10 m delta) fails here
             check(rte < rte_gate, f"{name} RTE {rte:.3f}% >= {rte_gate}%")
-        ates[name] = out["ate"]
-    streamed = {}
+        rows[name] = (out["ate"], rte)
     for name, build, gate, rte_gate in STREAM_ROWS:
-        streamed[name] = stream_row(name, *build(), gate, rte_gate)
-        ates[name] = streamed[name][0]
+        rows[name] = stream_row(name, *build(), gate, rte_gate)
+    ates = {k: v[0] for k, v in rows.items()}
     print(f"[scoreboard] corridor: ATE {ates['corridor_radar']:.5f} m with "
           f"20 Hz radar streamed against {ates['corridor_geo_proj']:.5f} m "
           f"with geometry alone (corridor_geo_proj): the Doppler factor "
           f"observes the velocity along the axis the walls leave free",
           flush=True)
-    return streamed
+    return rows
 
 
 def row_rte(s, data):
@@ -1813,6 +1834,33 @@ def write_tum(path, ts, pos, quat):
                     + "\n")
 
 
+def replay_files(tmp):
+    """The replay cell's inputs, written into directory ``tmp``: the
+    photometric phase's 4 s noisy room (64 x 1024) with its IMU and 20 Hz
+    radar frames in a bag from the port's writer, ``replay_config`` as YAML
+    and the ground truth as TUM. Returns (bag, config, ground truth paths,
+    radar frames, points a scan)."""
+    import os
+
+    import yaml
+
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.rosbag_writer import write_synthetic_bag
+
+    lm = syn.LidarModel(n_rows=64, n_cols=1024)
+    tc = syn.TrajectoryConfig(**PHOTO_TC)
+    data = photo_data()
+    radar = syn.generate_radar(syn.make_trajectory(tc), tc, rate=20.0, seed=0)
+    bag, cfgp, gtp = (os.path.join(tmp, n) for n in (
+        "room.bag", "params.yaml", "gt.tum"))
+    write_synthetic_bag(bag, data, radar_frames=radar)
+    with open(cfgp, "w") as f:
+        yaml.safe_dump(replay_config(lm), f)
+    gt = data["gt"]
+    write_tum(gtp, gt["ts"], gt["pos"], gt["quat"])
+    return bag, cfgp, gtp, radar, lm.n_rows * lm.n_cols
+
+
 def replay_phase():
     """The bag CLI at OS-1-64 widths: the photometric phase's 4 s noisy room
     (64 x 1024, 65,536 points a scan) with its IMU and 20 Hz radar frames
@@ -1825,29 +1873,15 @@ def replay_phase():
     import os
     import tempfile
 
-    import yaml
-
-    from mimosa_tpu_torch.io import synthetic as syn
     from mimosa_tpu_torch.io.replay import replay_bag
-    from mimosa_tpu_torch.io.rosbag_writer import write_synthetic_bag
     from mimosa_tpu_torch.ops import icp_cuda
     from mimosa_tpu_torch.utils import evaluation as ev
 
-    t0 = time.perf_counter()
-    lm = syn.LidarModel(n_rows=64, n_cols=1024)
-    tc = syn.TrajectoryConfig(**PHOTO_TC)
-    data = photo_data()
-    radar = syn.generate_radar(syn.make_trajectory(tc), tc, rate=20.0, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
-        bag, cfgp, gtp, outp = (os.path.join(tmp, n) for n in (
-            "room.bag", "params.yaml", "gt.tum", "traj.tum"))
-        write_synthetic_bag(bag, data, radar_frames=radar)
-        with open(cfgp, "w") as f:
-            yaml.safe_dump(replay_config(lm), f)
-        gt = data["gt"]
-        write_tum(gtp, gt["ts"], gt["pos"], gt["quat"])
+        t0 = time.perf_counter()
+        bag, cfgp, gtp, radar, n_pts = replay_files(tmp)
+        outp = os.path.join(tmp, "traj.tum")
         setup_s = time.perf_counter() - t0
-        n_pts = lm.n_rows * lm.n_cols
         icp_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         s = replay_bag(bag, cfgp, "/imu", "/points", radar_topic="/radar",
@@ -1933,6 +1967,344 @@ def replay_phase():
     return launches, replays
 
 
+# the two scoreboard rows of the offline refinement
+# (scripts/dataset_evaluation.py:278-281): name, synthetic_replay.run
+# keywords, the JAX package's ATE / RTE (ACCURACY_r05.json, on the TPU)
+REFINE_ROWS = (
+    ("room_noisy_two_pass", dict(two_pass=True, **NOISY), "5.4 mm / 0.035%"),
+    ("room_noisy_smooth", dict(two_pass=True, smooth=True, **NOISY),
+     "3.6 mm / 0.020%"),
+)
+REFINE_GATES = (0.080, 0.5)   # ATE [m], RTE [%] of both rows
+REFINE_PROF = 3               # pass 2's last scans, run under the profiler
+SMOOTH_CARD_CPU = 1e-4        # [m] the smoother on the card against the CPU
+BULK_TWO_PASS_GAP = 1e-6      # [m] bulk pass 2 against streamed pass 2
+
+
+def digest(tensors):
+    """sha256 of the bytes of ``tensors``, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kf_digest(s):
+    return digest((s.kf_q, s.kf_p, s.kf_count))
+
+
+@contextlib.contextmanager
+def recorded_passes():
+    """``synthetic_replay.replay`` replaced by the same scan-by-scan feed
+    with records around each pass: the map's digest before its first scan
+    and after its last, the keyframes' after its first scan (the
+    initialization sets keyframe 0) and after its last, host ms a scan with
+    a synchronize after each, and for a frozen pass the ICP launches
+    counted from 0 and the profiler's ICP kernels over its last scans.
+    Yields the list of records, one a pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimosa_tpu_torch.io import synthetic_replay as sr
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    passes = []
+
+    def replay(s, data):
+        n = len(data["scans"])
+        frozen = s.cfg.freeze_map
+        rec = dict(s=s, frozen=frozen, map_before=digest(s.vmap))
+        passes.append(rec)
+        if frozen:
+            icp_cuda.LAUNCHES = 0
+        ms, imu_i = replay_timed(s, data, range(1))
+        rec["kf_first"] = kf_digest(s)
+        more, imu_i = replay_timed(s, data, range(1, n - REFINE_PROF), imu_i)
+        ms += more
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if frozen
+              else contextlib.nullcontext()) as prof:
+            more, _ = replay_timed(s, data, range(n - REFINE_PROF, n), imu_i)
+        ms += more
+        rec.update(ms=ms, map_after=digest(s.vmap), kf_last=kf_digest(s),
+                   launches=icp_cuda.LAUNCHES if frozen else None,
+                   ran=None if prof is None else sum(
+                       1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "icp_linearize_kernel" in e.name))
+        return n
+
+    saved = sr.replay
+    sr.replay = replay
+    try:
+        yield passes
+    finally:
+        sr.replay = saved
+
+
+@contextlib.contextmanager
+def timed_smoother(record):
+    """``graph.refine.smooth`` timed where it is called: host seconds (with
+    a synchronize), peak device memory, K0 (``record``)."""
+    from mimosa_tpu_torch.graph import refine
+
+    saved = refine.smooth
+
+    def smooth(s, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = saved(s, *args, **kw)
+        torch.cuda.synchronize()
+        record.update(s=time.perf_counter() - t0, K0=len(out[0]),
+                      peak=(torch.cuda.max_memory_allocated() - base) / 2**20)
+        return out
+
+    refine.smooth = smooth
+    try:
+        yield
+    finally:
+        refine.smooth = saved
+
+
+def refine_rows(room_noisy):
+    """(a) room_noisy_two_pass and room_noisy_smooth through the port's
+    ``synthetic_replay.run`` on the card, captured, each under the rows'
+    gates, beside the JAX package's values and this run's one-pass
+    room_noisy (``room_noisy``: (ATE, RTE)); pass 2's map and keyframes
+    bitwise frozen, pass 1's map untouched, pass 2's ICP launches and the
+    profiler's count. Returns pass 2's ICP launches and the profiler's
+    ICP kernels of the first row."""
+    from mimosa_tpu_torch.io import synthetic_replay as sr
+    from mimosa_tpu_torch.utils import evaluation as ev
+
+    out_launches = out_ran = None
+    for name, kw, jax_vals in REFINE_ROWS:
+        sm = {}
+        with recorded_passes() as passes, timed_smoother(sm):
+            out = sr.run(verbose=False, **kw)
+        s, data = out["sequencer"], out["data"]
+        check(len(passes) == 2 and passes[1]["s"] is s, f"{name}: passes")
+        p1, p2 = passes
+        check(s.device.type == "cuda" and s.graphs is not None
+              and s.graphs.replays > 0 and s.cfg.freeze_map
+              and not p1["s"].cfg.freeze_map,
+              f"{name}: pass 2 did not replay frozen captured steps")
+        # pass 2 starts from a copy of pass 1's final map and keeps it
+        # and its keyframes; pass 1's map is left as it was
+        check(p2["map_before"] == p1["map_after"] == p2["map_after"]
+              == digest(p1["s"].vmap), f"{name}: a map changed")
+        check(p2["kf_first"] == p2["kf_last"] and s.num_keyframes == 1,
+              f"{name}: pass 2 changed its keyframes "
+              f"({s.num_keyframes} keyframes)")
+        shared = {t.untyped_storage().data_ptr() for t in p1["s"].vmap} & \
+            {t.untyped_storage().data_ptr() for t in s.vmap}
+        check(not shared, f"{name}: the passes share map storage")
+        n1 = s.cfg.n_gn_iters + 1
+        check(p2["launches"] == n1 * s.scan_idx, f"{name}: pass 2 launched "
+              f"the ICP kernel {p2['launches']} times in {s.scan_idx} scan "
+              f"steps")
+        check(p2["ran"] == n1 * REFINE_PROF, f"{name}: the profiler saw "
+              f"{p2['ran']} ICP kernels in pass 2's last {REFINE_PROF} "
+              f"scan steps")
+        if out_launches is None:
+            out_launches, out_ran = p2["launches"], p2["ran"]
+        if kw.get("smooth"):
+            ts, _, p = s.smoothed
+            ate, label = out["ate_smooth"], "smoothed"
+        else:
+            tr = s.trajectory
+            ts = np.asarray([t for t, _, _ in tr])
+            p = np.asarray([q for _, q, _ in tr])
+            ate, label = out["ate"], "pass 2"
+        rte = ev.rte(np.asarray(ts), np.asarray(p), data["gt"]["ts"],
+                     data["gt"]["pos"])
+        gate, rte_gate = REFINE_GATES
+        print(f"[refine] {name}: {label} ATE {ate:.5f} m (gate {gate}), RTE "
+              f"{rte:.3f}% (gate {rte_gate}%); the JAX package {jax_vals}; "
+              f"the port's one-pass room_noisy in this run "
+              f"{1e3 * room_noisy[0]:.2f} mm / {room_noisy[1]:.3f}%; pass 2 "
+              f"ATE {out['ate']:.5f} m; {s.scan_idx} scan steps a pass, "
+              f"ms a scan (synchronized, median of steps 6-) pass 1 "
+              f"{statistics.median(p1['ms'][5:]):.2f}, pass 2 "
+              f"{statistics.median(p2['ms'][5:]):.2f}; pass 2: map digest "
+              f"{p2['map_before'][:12]} before its first scan and after its "
+              f"last, = pass 1's final map, still pass 1's; keyframes 1, "
+              f"unchanged from its first scan to its last; ICP kernel "
+              f"launches {p2['launches']} (= {n1} x {s.scan_idx}), the "
+              f"profiler saw {p2['ran']} run in its last {REFINE_PROF} scan "
+              f"steps", flush=True)
+        if sm:
+            print(f"[refine] {name}: smoother over K0 = {sm['K0']} rows, "
+                  f"{sm['s']:.3f} s host (synchronized), peak device memory "
+                  f"{sm['peak']:.1f} MiB above its inputs", flush=True)
+        check(ate < gate and rte < rte_gate,
+              f"{name}: ATE {ate:.4f} m, RTE {rte:.3f}%")
+    return out_launches, out_ran
+
+
+def cpu_copy(s):
+    """The finished replay ``s`` as ``graph.refine.smooth`` reads it, in
+    CPU tensors: the smoother then runs on the CPU."""
+    import types
+
+    H6 = s.pose_info_records()
+    n = len(s._traj_ts)
+    return types.SimpleNamespace(
+        _traj_ts=list(s._traj_ts), traj_q=s.traj_q[:n].cpu(),
+        traj_p=s.traj_p[:n].cpu(), cfg=s.cfg, win_cfg=s.win_cfg,
+        window=types.SimpleNamespace(p=s.window.p.cpu(),
+                                     g_dir=s.window.g_dir.cpu()),
+        pose_info_records=lambda: H6.copy())
+
+
+def refine_bag():
+    """(b) the replay cell's 64x1024 photometric bag with 20 Hz radar:
+    ``replay_bag(two_pass=True, smooth=True)`` in this process, the CLI with
+    ``--two-pass --smooth --out`` as a subprocess (exit 0, its TUM file and
+    ATE lines equal to the in-process run's), pass 2's and the smoothed
+    ATE under REPLAY_ATE_GATE, ``bulk=True`` pass 2 within
+    BULK_TWO_PASS_GAP of streamed pass 2; the smoother timed alone (host
+    seconds, device busy from the profiler, peak memory, K0 by row kind);
+    (c) the smoother on the CPU on the same inputs, within
+    SMOOTH_CARD_CPU."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimosa_tpu_torch.graph import refine
+    from mimosa_tpu_torch.io.replay import replay_bag, write_smoothed_tum
+    from mimosa_tpu_torch.io.rosbag import Bag
+    from mimosa_tpu_torch.ops import icp_cuda
+    from mimosa_tpu_torch.utils import evaluation as ev
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bag, cfgp, gtp, radar, n_pts = replay_files(tmp)
+        outp = os.path.join(tmp, "refined.tum")
+        kw = dict(radar_topic="/radar", max_scan_points=n_pts, verbose=False,
+                  two_pass=True)
+        icp_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        s = replay_bag(bag, cfgp, "/imu", "/points", smooth=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = icp_cuda.LAUNCHES
+        n1 = s.cfg.n_gn_iters + 1
+        check(s.cfg.freeze_map and s.num_keyframes == 1
+              and launches == 2 * n1 * s.scan_idx, f"bag: pass 2 frozen, "
+              f"{s.num_keyframes} keyframes, {launches} ICP launches in 2 x "
+              f"{s.scan_idx} scan steps")
+        write_smoothed_tum(outp + ".inproc", s.smoothed)
+        gt_ts, gt_p, _ = ev.load_tum(gtp)
+        est_p = positions(s)
+        est_ts = np.asarray([t for t, _, _ in s.trajectory])
+        ate = ev.ate(est_ts, est_p, gt_ts, gt_p)
+        sm_ts, _, sm_p = s.smoothed
+        ate_s = ev.ate(sm_ts, sm_p, gt_ts, gt_p)
+        check(ate < REPLAY_ATE_GATE and ate_s < REPLAY_ATE_GATE,
+              f"bag: pass 2 ATE {ate:.4f} m, smoothed {ate_s:.4f} m")
+
+        # the same two passes through the bulk scheduler
+        t0 = time.perf_counter()
+        sb = replay_bag(bag, cfgp, "/imu", "/points", bulk=True, **kw)
+        torch.cuda.synchronize()
+        bulk_wall = time.perf_counter() - t0
+        check(sb.cfg.freeze_map and sb.counters == s.counters
+              and sb._traj_ts == s._traj_ts, "bag: bulk pass 2's schedule")
+        bulk_gap = float(np.abs(positions(sb) - est_p).max())
+        check(bulk_gap < BULK_TWO_PASS_GAP, f"bag: bulk pass 2 is "
+              f"{bulk_gap:.3e} m from streamed pass 2")
+
+        # the CLI
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "mimosa_tpu_torch.io.replay", "--bag", bag,
+             "--config", cfgp, "--imu-topic", "/imu", "--lidar-topic",
+             "/points", "--radar-topic", "/radar", "--max-scan-points",
+             str(n_pts), "--gt", gtp, "--out", outp, "--two-pass",
+             "--smooth"], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"the refining replay CLI exited "
+              f"{cli.returncode}:\n{cli.stdout[-2000:]}\n{cli.stderr[-4000:]}")
+        lines = [ln for ln in cli.stdout.splitlines() if "ATE:" in ln]
+        want = [f"ATE: {ate:.4f} m", f"smoothed ATE: {ate_s:.4f} m"]
+        check(len(lines) == 2 and all(a.startswith(b)
+                                      for a, b in zip(lines, want)),
+              f"the CLI printed {lines}, the in-process run {want}")
+        with open(outp) as a, open(outp + ".inproc") as b:
+            check(a.read() == b.read(), "the refining CLI's TUM file "
+                  "differs from the in-process run's")
+
+        # the smoother alone on pass 2's replay, then under the profiler,
+        # then on the CPU on the same inputs
+        imu = [m for _, _, _, m in Bag(bag).messages({"/imu"})]
+        args = (np.asarray([m["stamp"] for m in imu]),
+                np.asarray([m["acc"] for m in imu]),
+                np.asarray([m["gyro"] for m in imu]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        alone = refine.smooth(s, *args)
+        torch.cuda.synchronize()
+        sm_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        check(all(np.array_equal(a, b) for a, b in zip(alone, s.smoothed)),
+              "the smoother gave other bits on the same replay")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            refine.smooth(s, *args)
+            torch.cuda.synchronize()
+        busy, n_dev = device_busy_ms(prof.events())
+        t0 = time.perf_counter()
+        cpu = refine.smooth(cpu_copy(s), *args)
+        cpu_s = time.perf_counter() - t0
+        card_cpu = float(np.abs(cpu[2] - s.smoothed[2]).max())
+        check(card_cpu < SMOOTH_CARD_CPU, f"the smoother on the card and "
+              f"on the CPU differ by {card_cpu:.3e} m")
+        K0 = len(sm_ts)
+        scan_rows = sum(1 for src in s._traj_src if src >= 0)
+        weak = int((np.abs(s.pose_info_records()).max(axis=(1, 2))
+                    < 1e-9).sum())
+    print(f"[refine] bag (OS-1-64, 64 x 1024, photometric + 20 Hz radar): "
+          f"replay_bag(two_pass=True, smooth=True) {s.scan_idx} scan steps "
+          f"a pass, {wall:.1f} s for both passes and the smoother "
+          f"({1e3 * wall / (2 * s.counters['scans']):.2f} ms a scan incl. "
+          f"bag decode, set-up and captures); ICP kernel launches {launches} "
+          f"(= {n1} x 2 x {s.scan_idx}); keyframes in pass 2: 1; pass 2 ATE "
+          f"{ate:.5f} m, smoothed ATE {ate_s:.5f} m (gate "
+          f"{REPLAY_ATE_GATE})", flush=True)
+    print(f"[refine] bag: replay_bag(two_pass=True, bulk=True) "
+          f"{bulk_wall:.1f} s, {sb.bulk_counts['chunks']} chunks in pass 2; "
+          f"largest position "
+          f"gap to streamed pass 2 {bulk_gap:.2e} m (gate "
+          f"{BULK_TWO_PASS_GAP}); CLI --two-pass --smooth exit 0 in "
+          f"{cli_s:.1f} s, its lines {lines} and its TUM file ({K0} poses) "
+          f"equal the in-process run's", flush=True)
+    print(f"[refine] bag smoother: K0 = {K0} rows ({scan_rows} scan rows, "
+          f"{K0 - scan_rows} radar and initialization rows, {weak} weakly "
+          f"anchored); alone {sm_s:.3f} s host (synchronized), device busy "
+          f"{busy:.1f} ms in {n_dev} device ops (profiler), peak device "
+          f"memory {peak:.1f} MiB above its inputs; on the CPU {cpu_s:.3f} "
+          f"s, largest position gap card to CPU {card_cpu:.2e} m (gate "
+          f"{SMOOTH_CARD_CPU})", flush=True)
+
+
+def refine_phase(room_noisy):
+    """The offline refinement: (a) the two scoreboard rows, (b) the bag CLI
+    with ``--two-pass --smooth`` at 64x1024, (c) the smoother on the card
+    against the CPU. ``room_noisy``: this run's one-pass room_noisy (ATE,
+    RTE). Returns pass 2's ICP launches and the profiler's count in (a)'s
+    first row."""
+    launches, ran = refine_rows(room_noisy)
+    refine_bag()
+    return launches, ran
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1973,15 +2345,17 @@ def main():
     clock.append(("photo", time.perf_counter()))
     mm_launches, mm_ran = multimodal_phase()
     clock.append(("multimodal", time.perf_counter()))
-    streamed = scoreboard_phase()
+    rows = scoreboard_phase()
     clock.append(("scoreboard", time.perf_counter()))
     bulk_launches, bulk_ran, bulk_mixed_launches = bulk_phase(
-        streamed["corridor_radar"])
+        rows["corridor_radar"])
     clock.append(("bulk", time.perf_counter()))
     online_launches, online_replays = online_phase()
     clock.append(("online", time.perf_counter()))
     replay_launches, replay_replays = replay_phase()
     clock.append(("replay", time.perf_counter()))
+    refine_launches, refine_ran = refine_phase(rows["room_noisy"])
+    clock.append(("refine", time.perf_counter()))
     print("[clock] seconds by phase: " + ", ".join(
         f"{n} {t - t_prev:.1f}" for (_, t_prev), (n, t)
         in zip(clock, clock[1:])), flush=True)
@@ -2004,7 +2378,9 @@ def main():
                launches_replay=replay_launches,
                graph_replays_replay=replay_replays,
                launches_bulk=bulk_launches, profiled_runs_bulk=bulk_ran,
-               launches_bulk_mixed=bulk_mixed_launches)
+               launches_bulk_mixed=bulk_mixed_launches,
+               launches_refine=refine_launches,
+               profiled_runs_refine=refine_ran)
     print(json.dumps({"kernels": [rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,12 @@ steady-state events of a recorded sequence in chunks: one host pack and
 one copy per input slab a chunk, then each event replays its streaming
 variant with its inputs taken from rows of the device slabs.
 
-Not ported yet (the constructor refuses these settings): rescue, rematch
-and frozen-map localization.
+``freeze_map`` is localization mode: the scan steps leave the map and the
+keyframe ring as they came in (pass 2 of the two-pass refinement, or
+localization against a prior map given as ``init_map``).
+
+Not ported yet (the constructor refuses these settings): rescue and
+rematch (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -187,8 +191,8 @@ class SequencerConfig:
 
 
 # settings whose code paths are not ported yet, with the value they need
-_PORTED_ONLY = dict(rematch_on_motion=False, rescue_enabled=False,
-                    freeze_map=False)
+# (ROADMAP item 11)
+_PORTED_ONLY = dict(rematch_on_motion=False, rescue_enabled=False)
 
 
 def _scan_ncol(cfg, photo=False):
@@ -508,11 +512,13 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
             sc[PH_SUM_SLOTS[1]] + sc[PH_SUM_SLOTS[2]],
             sc[PH_SUM_SLOTS[3]]]).to(d)
 
-    # 7) keyframe decision + map update + trajectory / debug logging
+    # 7) keyframe decision + map update + trajectory / debug logging;
+    # freeze_map (localization) leaves the map and the keyframes as they are
     q_new, p_new = pose()
-    vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
-        vmap, q_new, p_new, dsk.points_le, geo_in, kf_q, kf_p, kf_count,
-        scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
+    if not seq_cfg.freeze_map:
+        vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
+            vmap, q_new, p_new, dsk.points_le, geo_in, kf_q, kf_p, kf_count,
+            scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
     traj_q = _put_row(traj_q, traj_idx, q_new)
     traj_p = _put_row(traj_p, traj_idx, p_new)
 
@@ -553,18 +559,19 @@ def _init_lidar_step(window, vmap, traj_q, traj_p, kf_q, kf_p, pts, vd,
                      q0, g0, bg, ba, ts, q_bl, t_bl,
                      *, seq_cfg, win_cfg, map_cfg):
     """State setup (:func:`_init_inertial_step`) + keyframe 0 + stationary
-    first-scan map seed."""
+    first-scan map seed (not with ``freeze_map``: the map stays as given)."""
     window, traj_q, traj_p = _init_inertial_step(
         window, traj_q, traj_p, q0, g0, bg, ba, ts, win_cfg=win_cfg)
     z3 = torch.zeros_like(bg)
     zero = torch.zeros((), dtype=torch.int64, device=bg.device)
     kf_q, kf_p = _put_row(kf_q, zero, q0), _put_row(kf_p, zero, z3)
-    q_wl, t_wl = lie.se3_compose(q0, z3, q_bl, t_bl)
-    ds, ds_valid, _ = voxel_downsample(
-        lie.se3_transform(q_wl, t_wl, pts), vd, seq_cfg.map_insert_leaf,
-        seq_cfg.n_map_points)
-    vmap = _map_update(vmap, ds, ds_valid, zero.to(torch.int32),
-                       map_cfg=map_cfg)
+    if not seq_cfg.freeze_map:
+        q_wl, t_wl = lie.se3_compose(q0, z3, q_bl, t_bl)
+        ds, ds_valid, _ = voxel_downsample(
+            lie.se3_transform(q_wl, t_wl, pts), vd, seq_cfg.map_insert_leaf,
+            seq_cfg.n_map_points)
+        vmap = _map_update(vmap, ds, ds_valid, zero.to(torch.int32),
+                           map_cfg=map_cfg)
     return window, vmap, traj_q, traj_p, kf_q, kf_p
 
 
@@ -855,9 +862,11 @@ def _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     window = win.rebase_prior(window, win_cfg)
     window = win.add_measurement_block(window, pidx, *geo_meas(icp), win_cfg)
 
-    vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
-        vmap, *pose(), dsk.points_le, geo_in, kf_q, kf_p, kf_count,
-        scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
+    # keyframe-gated map densification, not in localization mode
+    if not seq_cfg.freeze_map:
+        vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
+            vmap, *pose(), dsk.points_le, geo_in, kf_q, kf_p, kf_count,
+            scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
     rec = torch.cat([icp.num_inlier.to(d).reshape(1),
                      torch.zeros(DBG_W - 1, dtype=d, device=pts.device)])
     debug_rec = _put_row(debug_rec, scan_idx.to(torch.int64), rec)
@@ -896,7 +905,14 @@ class Sequencer:
     (p = r * dir) or [N,6] direction + offset (p = s * dir + offset), at
     full sensor density (``point_skip`` is applied here). ``photo_cfg``
     (a :class:`~mimosa_tpu_torch.lidar.photometric.PhotometricConfig`)
-    adds the photometric factor; scans then carry an intensity column."""
+    adds the photometric factor; scans then carry an intensity column.
+    ``init_map`` (a :class:`~mimosa_tpu_torch.mapping.voxel_hash.VoxelMap`
+    of ``map_cfg``'s capacity, on this device and in this dtype, e.g.
+    another Sequencer's ``vmap``) is the map to start from instead of an
+    empty one: localization against a prior map with ``freeze_map``, or
+    pass 2 of the two-pass refinement. Its tensors are copied: the
+    captured steps write the map's buffers in place, so no Sequencer shares
+    another's."""
 
     def __init__(self, seq_cfg: SequencerConfig = SequencerConfig(),
                  win_cfg: win.WindowConfig = win.WindowConfig(),
@@ -904,12 +920,13 @@ class Sequencer:
                  geo_cfg: geo.GeometricConfig = geo.GeometricConfig(),
                  photo_cfg: ph.PhotometricConfig = None,
                  *, device=None, dtype=torch.float32, ray_dirs=None,
-                 eager=False):
+                 eager=False, init_map=None):
         for name, need in _PORTED_ONLY.items():
             if getattr(seq_cfg, name) != need:
                 raise NotImplementedError(
                     f"SequencerConfig.{name}={getattr(seq_cfg, name)!r} is "
-                    f"not ported yet (the port supports {name}={need!r})")
+                    f"not ported yet (the port supports {name}={need!r}; "
+                    f"ROADMAP item 11)")
         if photo_cfg is not None and photo_cfg.exact_ouster \
                 and seq_cfg.point_skip != 1:
             raise ValueError(
@@ -941,7 +958,8 @@ class Sequencer:
         self.imu = ImuBuffer(max_duration=seq_cfg.imu_max_buffer_duration,
                              acc_scale=seq_cfg.imu_acc_scale)
         self.window = win.create(win_cfg, self.device, dtype)
-        self.vmap = vh.create(map_cfg, self.device, dtype)
+        self.vmap = vh.create(map_cfg, self.device, dtype) \
+            if init_map is None else self._copy_map(init_map)
         K = win_cfg.K
         z3 = torch.zeros(3, **f)
         self.preints = pre.PreintState(*[
@@ -982,6 +1000,20 @@ class Sequencer:
         self._steps = {}             # step variant -> its function
         self.graphs = None if eager or self.device.type != "cuda" \
             else CapturedSteps(self.device)
+
+    def _copy_map(self, vmap):
+        """A copy of ``vmap`` in new tensors, after checking that it is a
+        map of ``map_cfg``'s capacity on this device in this dtype."""
+        # the window's device: "cuda" resolved to its index
+        want = (self.map_cfg.capacity + 1, self.window.p.device, self.dtype)
+        got = (vmap.coords.shape[0], vmap.n.device, vmap.n.dtype)
+        if got != want or any(t.shape[0] != want[0] or t.device != want[1]
+                              for t in vmap):
+            raise ValueError(
+                f"init_map holds {got[0]} rows on {got[1]} in {got[2]}; "
+                f"this Sequencer needs {want[0]} rows (map_cfg capacity + "
+                f"the write-off row) on {want[1]} in {want[2]}")
+        return vh.VoxelMap(*[t.clone() for t in vmap])
 
     def _init_codec(self, ray_dirs):
         """The resident decode tables: the range codec's beam table and the

@@ -5,7 +5,8 @@ Usage:
     python -m mimosa_tpu_torch.io.replay --bag seq.bag --config params.yaml \
         --imu-topic /os_cloud_node/imu --lidar-topic /os_cloud_node/points \
         [--radar-topic ...] [--odom-topic ...] [--gt gt.tum] \
-        [--out traj.tum] [--config-override override.yaml] [--device cpu]
+        [--out traj.tum] [--config-override override.yaml] [--device cpu] \
+        [--bulk] [--two-pass] [--smooth]
 
 The port of ``mimosa_tpu/io/replay.py``. Replays messages in receipt-time
 order with the scan-collection delay (scans processed only once IMU has
@@ -20,9 +21,13 @@ names another (``--device cpu``), and raises where there is no card.
 messages gather in a batch that runs in chunks of 32 events once the IMU
 has passed the newest of them.
 
-Not ported yet, each refused with ``NotImplementedError``: ``--two-pass``
-and ``--smooth`` (ROADMAP item 13), ``--debug-stream`` and
-``--stream-every`` (item 15).
+``--two-pass`` replays the bag again against the first pass's final map,
+frozen (mapping, then localization); ``--smooth`` smooths the whole final
+trajectory in one batch (``graph/refine.py``) and writes that one to
+``--out``, with its ATE line after the streamed one's.
+
+Not ported yet, each refused with ``NotImplementedError``:
+``--debug-stream`` and ``--stream-every`` (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -42,8 +47,7 @@ from mimosa_tpu_torch import require_cuda
 
 # options of the JAX package's replay that the port refuses, with the
 # ROADMAP item that ports each
-NOT_PORTED = {"two_pass": 13, "smooth": 13, "debug_stream": 15,
-              "stream_every": 15}
+NOT_PORTED = {"debug_stream": 15, "stream_every": 15}
 
 
 def _refuse(option):
@@ -214,12 +218,19 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
     what streams); it gives the bits of the streaming replay with
     ``merge_marginalize=True``, and takes no ``step_control``.
 
-    ``two_pass``, ``smooth`` and ``debug_stream`` are not ported yet and
-    raise NotImplementedError."""
-    for option, on in (("two_pass", two_pass), ("smooth", smooth),
-                       ("debug_stream", debug_stream is not None)):
-        if on:
-            _refuse(option)
+    ``two_pass=True``: mapping, then localization. Pass 1 replays the bag
+    and builds the map; pass 2 replays the same messages in a second
+    Sequencer against pass 1's final map, frozen (``freeze_map``, the map
+    copied in as ``init_map``), so that every scan, the earliest too,
+    registers against the whole map. Returns pass 2's Sequencer.
+
+    ``smooth=True``: the final trajectory smoothed in one batch
+    (``graph/refine.smooth``) over the bag's whole IMU stream, kept on the
+    returned Sequencer as ``.smoothed = (ts, q, p)``.
+
+    ``debug_stream`` is not ported yet and raises NotImplementedError."""
+    if debug_stream is not None:
+        _refuse("debug_stream")
     if bulk and step_control is not None:
         raise ValueError("bulk replay is non-interactive")
     device = require_cuda() if device is None else torch.device(device)
@@ -299,10 +310,10 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
         return float(mgr.get("ts_offset", 0.0)), int(
             mgr.get("initial_skip", 0))
     ts_off = {}
-    skip_left = {}
+    skip_left0 = {}
     for ns, key in (("imu", "imu"), ("lidar", "lidar"), ("radar", "radar"),
                     ("odometry", "odom")):
-        ts_off[key], skip_left[key] = _sensor_base(ns)
+        ts_off[key], skip_left0[key] = _sensor_base(ns)
 
     bag_files = sorted(glob.glob(bag_path)) if any(
         c in bag_path for c in "*?[") else [bag_path]
@@ -322,140 +333,180 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
             raise ValueError(f"no scans on {lidar_topic} in range")
         ray_dirs = _fit_range_codec(ray_dirs, first[3], pc2, verbose)
 
-    s = seq.Sequencer(seq_cfg=cs.sequencer, win_cfg=cs.window,
-                      map_cfg=cs.voxel_map, geo_cfg=cs.geometric,
-                      photo_cfg=photo_cfg, device=device, ray_dirs=ray_dirs)
-    s.radar_cfg = cs.radar
-    s.odom_cfg = cs.odometry
+    def make_sequencer(freeze=False, init_map=None):
+        cfg = dataclasses.replace(cs.sequencer, freeze_map=True) if freeze \
+            else cs.sequencer
+        s_ = seq.Sequencer(seq_cfg=cfg, win_cfg=cs.window,
+                           map_cfg=cs.voxel_map, geo_cfg=cs.geometric,
+                           photo_cfg=photo_cfg, device=device,
+                           ray_dirs=ray_dirs, init_map=init_map)
+        s_.radar_cfg = cs.radar
+        s_.odom_cfg = cs.odometry
+        return s_
 
-    # measurement release queue: every exteroceptive message is held
-    # until the IMU stream has passed its dispatch ts (scans: corrected
-    # end ts — the reference's lidar_collection_delay semantics,
-    # mimosa_rosbag.cpp:111-115; radar/odometry: frame ts — the
-    # reference instead consumes them at arrival and EXTRAPOLATES IMU,
-    # imu/manager.cpp:238-357; holding is the drop-free deterministic
-    # equivalent). Heap entries: (release_ts, kind 0=scan/1=radar/2=odom,
-    # arrival seq, payload).
-    pending = []
-    pend_seq = 0
-    batch = []        # bulk: decoded events (message, dispatch time)
-    n_proc = 0
+    def run_events(s, label=""):
+        """Replay the messages in range through Sequencer ``s``."""
+        skip_left = dict(skip_left0)
+        # measurement release queue: every exteroceptive message is held
+        # until the IMU stream has passed its dispatch ts (scans: corrected
+        # end ts — the reference's lidar_collection_delay semantics,
+        # mimosa_rosbag.cpp:111-115; radar/odometry: frame ts — the
+        # reference instead consumes them at arrival and EXTRAPOLATES IMU,
+        # imu/manager.cpp:238-357; holding is the drop-free deterministic
+        # equivalent). Heap entries: (release_ts, kind 0=scan/1=radar/
+        # 2=odom, arrival seq, payload).
+        pending = []
+        pend_seq = 0
+        batch = []        # bulk: decoded events (message, dispatch time)
+        n_proc = 0
 
-    def flush_bulk(force=False):
-        """Run the batch through add_bulk once it holds ``bulk_chunk``
-        events and the IMU has passed the newest one's dispatch time (the
-        collection delay, applied chunk-wise), or at the end."""
-        nonlocal n_proc
-        if not batch or (not force and (
-                len(batch) < bulk_chunk or s.imu.t_last is None
-                or s.imu.t_last < max(t for _, t in batch))):
-            return
-        s.add_bulk([b for b, _ in batch], chunk=bulk_chunk)
-        n_proc += sum(1 for b, _ in batch if b.get("kind", "scan") == "scan")
-        batch.clear()
+        def flush_bulk(force=False):
+            """Run the batch through add_bulk once it holds ``bulk_chunk``
+            events and the IMU has passed the newest one's dispatch time
+            (the collection delay, applied chunk-wise), or at the end."""
+            nonlocal n_proc
+            if not batch or (not force and (
+                    len(batch) < bulk_chunk or s.imu.t_last is None
+                    or s.imu.t_last < max(t for _, t in batch))):
+                return
+            s.add_bulk([b for b, _ in batch], chunk=bulk_chunk)
+            n_proc += sum(1 for b, _ in batch
+                          if b.get("kind", "scan") == "scan")
+            batch.clear()
 
-    t_start = time.time()
-    for topic, _, t, m in msgs:
-        if t < t0 or t > t_stop:
-            continue
-        if topic == imu_topic:
-            if skip_left["imu"] > 0:
-                skip_left["imu"] -= 1
+        t_start = time.time()
+        for topic, _, t, m in msgs:
+            if t < t0 or t > t_stop:
                 continue
-            s.add_imu(m["stamp"] + ts_off["imu"], m["acc"], m["gyro"])
-            if bulk:
-                flush_bulk()
-            while pending and s.imu.t_last is not None and \
-                    pending[0][0] <= s.imu.t_last:
-                _, kind_, _, payload = heapq.heappop(pending)
-                if kind_ == 0:
-                    s.add_scan(payload["ts_header"], staged=payload)
-                    n_proc += 1
-                elif kind_ == 1:
-                    s.add_radar(*payload)
+            if topic == imu_topic:
+                if skip_left["imu"] > 0:
+                    skip_left["imu"] -= 1
+                    continue
+                s.add_imu(m["stamp"] + ts_off["imu"], m["acc"], m["gyro"])
+                if bulk:
+                    flush_bulk()
+                while pending and s.imu.t_last is not None and \
+                        pending[0][0] <= s.imu.t_last:
+                    _, kind_, _, payload = heapq.heappop(pending)
+                    if kind_ == 0:
+                        s.add_scan(payload["ts_header"], staged=payload)
+                        n_proc += 1
+                    elif kind_ == 1:
+                        s.add_radar(*payload)
+                    else:
+                        s.add_odometry(*payload)
+            elif topic == lidar_topic:
+                if skip_left["lidar"] > 0:
+                    skip_left["lidar"] -= 1
+                    continue
+                if step_control is not None and not step_control.gate():
+                    break                     # user abort ('q')
+                stamp = m["stamp"] + ts_off["lidar"]
+                d = pc2.decode(m["data"], m["fields"], m["point_step"],
+                               header_stamp=stamp,
+                               use_reflectivity=use_refl)
+                if sq_range:
+                    # ref scale_intensity_by_sq_range: undo 1/r^2 falloff
+                    d["intensity"] = d["intensity"] * np.einsum(
+                        "ni,ni->n", d["points"], d["points"])
+                if organize:
+                    ok = pc2.point_filters(d["points"], d["intensity"],
+                                           d["ring"],
+                                           **{**filters, "point_skip": 1})
+                    if skip_div > 1 and len(d["ring"]):
+                        n_rings = max(int(d["ring"].max()) + 1, 1)
+                        order = native.ring_sort(d["ring"], n_rings)
+                        keep = np.zeros(len(order), bool)
+                        keep[order[::skip_div]] = True
+                        ok &= keep
                 else:
-                    s.add_odometry(*payload)
-        elif topic == lidar_topic:
-            if skip_left["lidar"] > 0:
-                skip_left["lidar"] -= 1
-                continue
-            if step_control is not None and not step_control.gate():
-                break                     # user abort ('q')
-            stamp = m["stamp"] + ts_off["lidar"]
-            d = pc2.decode(m["data"], m["fields"], m["point_step"],
-                           header_stamp=stamp, use_reflectivity=use_refl)
-            if sq_range:
-                # ref scale_intensity_by_sq_range: undo 1/r^2 falloff
-                d["intensity"] = d["intensity"] * np.einsum(
-                    "ni,ni->n", d["points"], d["points"])
-            if organize:
-                ok = pc2.point_filters(d["points"], d["intensity"],
-                                       d["ring"],
-                                       **{**filters, "point_skip": 1})
-                if skip_div > 1 and len(d["ring"]):
-                    n_rings = max(int(d["ring"].max()) + 1, 1)
-                    order = native.ring_sort(d["ring"], n_rings)
-                    keep = np.zeros(len(order), bool)
-                    keep[order[::skip_div]] = True
-                    ok &= keep
-            else:
-                ok = pc2.point_filters(d["points"], d["intensity"],
-                                       d["ring"], **filters)
-            if bulk:
-                tv = d["t_rel"][ok]
-                batch.append((dict(ts_header=stamp, points=d["points"],
-                                   t_rel=d["t_rel"], valid=ok,
-                                   intensity=d["intensity"]),
-                              float(stamp + (tv.max() if tv.size else 0.0))))
-                continue
-            # stage at arrival: the pack + host-to-device copy overlap the
-            # device work of earlier scans while this one waits for IMU
-            # coverage
-            st = s.stage_scan(stamp, d["points"], d["t_rel"], ok,
-                              intensity=d["intensity"])
-            heapq.heappush(pending, (st["t_end"], 0, pend_seq, st))
-            pend_seq += 1
-        elif radar_topic and topic == radar_topic:
-            if skip_left["radar"] > 0:
-                skip_left["radar"] -= 1
-                continue
-            d = pc2.decode_radar(m["data"], m["fields"], m["point_step"])
-            ts_r = m["stamp"] + ts_off["radar"]
-            if not bool(raw_cfg.get("radar", {}).get("manager", {})
-                        .get("is_exposure_compensated", True)):
-                ts_r += float(raw_cfg["radar"]["manager"]
-                              .get("frame_ms", 0.0)) * 1e-3 / 2.0
-            if bulk:
-                batch.append((dict(kind="radar", ts=ts_r,
-                                   points_r=d["points"], doppler=d["doppler"],
-                                   snr_db=d["snr_db"]), ts_r))
-                continue
-            heapq.heappush(pending,
-                           (ts_r, 1, pend_seq, (ts_r, d["points"],
-                                                d["doppler"], d["snr_db"])))
-            pend_seq += 1
-        elif odom_topic and topic == odom_topic:
-            if skip_left["odom"] > 0:
-                skip_left["odom"] -= 1
-                continue
-            ts_o = m["stamp"] + ts_off["odom"]
-            if bulk:
-                batch.append((dict(kind="odom", ts=ts_o, q=m["q"], p=m["p"],
-                                   cov6=m["pose_cov"]), ts_o))
-                continue
-            heapq.heappush(pending, (ts_o, 2, pend_seq,
-                                     (ts_o, m["q"], m["p"], m["pose_cov"])))
-            pend_seq += 1
-    if bulk:
-        flush_bulk(force=True)
-    if s.device.type == "cuda":
-        torch.cuda.synchronize(s.device)
-    wall = time.time() - t_start
-    if verbose:
-        print(f"replayed {n_proc} scans in {wall:.1f}s "
-              f"({n_proc / max(wall, 1e-9):.2f} scans/s) on {s.device} "
-              f"counters={s.counters}")
+                    ok = pc2.point_filters(d["points"], d["intensity"],
+                                           d["ring"], **filters)
+                if bulk:
+                    tv = d["t_rel"][ok]
+                    batch.append((dict(ts_header=stamp, points=d["points"],
+                                       t_rel=d["t_rel"], valid=ok,
+                                       intensity=d["intensity"]),
+                                  float(stamp + (tv.max() if tv.size
+                                                 else 0.0))))
+                    continue
+                # stage at arrival: the pack + host-to-device copy overlap
+                # the device work of earlier scans while this one waits for
+                # IMU coverage
+                st = s.stage_scan(stamp, d["points"], d["t_rel"], ok,
+                                  intensity=d["intensity"])
+                heapq.heappush(pending, (st["t_end"], 0, pend_seq, st))
+                pend_seq += 1
+            elif radar_topic and topic == radar_topic:
+                if skip_left["radar"] > 0:
+                    skip_left["radar"] -= 1
+                    continue
+                d = pc2.decode_radar(m["data"], m["fields"],
+                                     m["point_step"])
+                ts_r = m["stamp"] + ts_off["radar"]
+                if not bool(raw_cfg.get("radar", {}).get("manager", {})
+                            .get("is_exposure_compensated", True)):
+                    ts_r += float(raw_cfg["radar"]["manager"]
+                                  .get("frame_ms", 0.0)) * 1e-3 / 2.0
+                if bulk:
+                    batch.append((dict(kind="radar", ts=ts_r,
+                                       points_r=d["points"],
+                                       doppler=d["doppler"],
+                                       snr_db=d["snr_db"]), ts_r))
+                    continue
+                heapq.heappush(pending, (ts_r, 1, pend_seq, (
+                    ts_r, d["points"], d["doppler"], d["snr_db"])))
+                pend_seq += 1
+            elif odom_topic and topic == odom_topic:
+                if skip_left["odom"] > 0:
+                    skip_left["odom"] -= 1
+                    continue
+                ts_o = m["stamp"] + ts_off["odom"]
+                if bulk:
+                    batch.append((dict(kind="odom", ts=ts_o, q=m["q"],
+                                       p=m["p"], cov6=m["pose_cov"]), ts_o))
+                    continue
+                heapq.heappush(pending, (ts_o, 2, pend_seq, (
+                    ts_o, m["q"], m["p"], m["pose_cov"])))
+                pend_seq += 1
+        if bulk:
+            flush_bulk(force=True)
+        if s.device.type == "cuda":
+            torch.cuda.synchronize(s.device)
+        wall = time.time() - t_start
+        if verbose:
+            print(f"{label}replayed {n_proc} scans in {wall:.1f}s "
+                  f"({n_proc / max(wall, 1e-9):.2f} scans/s) on {s.device} "
+                  f"counters={s.counters}")
+
+    s = make_sequencer()
+    run_events(s)
+    if two_pass:
+        s2 = make_sequencer(freeze=True, init_map=s.vmap)
+        run_events(s2, label="pass 2 (frozen map): ")
+        s = s2
+    if smooth and len(s._traj_ts) >= 3:
+        from mimosa_tpu_torch.graph import refine
+        imu_rows = [(m["stamp"] + ts_off["imu"], m["acc"], m["gyro"])
+                    for topic, _, t, m in msgs
+                    if topic == imu_topic and t0 <= t <= t_stop]
+        s.smoothed = refine.smooth(
+            s, np.asarray([r[0] for r in imu_rows]),
+            np.asarray([r[1] for r in imu_rows]),
+            np.asarray([r[2] for r in imu_rows]))
+        if verbose:
+            print(f"batch smoothing: re-solved {len(s.smoothed[0])} states")
     return s
+
+
+def write_smoothed_tum(path, smoothed):
+    """A smoothed trajectory (ts, q_wxyz, p) as a TUM file, in
+    ``Sequencer.write_tum``'s layout: ts x y z qx qy qz qw."""
+    ts, q, p = smoothed
+    with open(path, "w") as f:
+        for i in range(len(ts)):
+            f.write(f"{ts[i]:.9f} {p[i][0]} {p[i][1]} {p[i][2]} "
+                    f"{q[i][1]} {q[i][2]} {q[i][3]} {q[i][0]}\n")
 
 
 def main(argv=None):
@@ -498,9 +549,11 @@ def main(argv=None):
                          "odometry messages run in chunks of 32 events "
                          "through Sequencer.add_bulk")
     ap.add_argument("--two-pass", action="store_true",
-                    help="not ported yet (ROADMAP item 13)")
+                    help="mapping -> localization refinement: replay again "
+                         "against the first pass's final map, frozen")
     ap.add_argument("--smooth", action="store_true",
-                    help="not ported yet (ROADMAP item 13)")
+                    help="batch smoothing of the whole final trajectory "
+                         "(graph/refine.py), written to --out")
     ap.add_argument("--debug-stream", metavar="JSONL",
                     help="not ported yet (ROADMAP item 15)")
     ap.add_argument("--stream-every", type=int,
@@ -526,14 +579,21 @@ def main(argv=None):
                        step_control=StepControl() if args.interactive
                        else None,
                        ouster_metadata=args.ouster_metadata,
+                       two_pass=args.two_pass, smooth=args.smooth,
                        bulk=args.bulk, range_transfer=args.range_transfer)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")
         prof.export_chrome_trace(trace)
         print(f"profile -> {trace}")
-    s.write_tum(args.out)
-    print(f"trajectory -> {args.out} ({len(s.trajectory)} poses)")
+    smoothed = getattr(s, "smoothed", None)
+    if smoothed is not None:
+        sm_ts, _, sm_p = smoothed
+        write_smoothed_tum(args.out, smoothed)
+        print(f"smoothed trajectory -> {args.out} ({len(sm_ts)} poses)")
+    else:
+        s.write_tum(args.out)
+        print(f"trajectory -> {args.out} ({len(s.trajectory)} poses)")
     if args.gt:
         from mimosa_tpu_torch.utils import evaluation as ev
         gt_ts, gt_p, _ = ev.load_tum(args.gt)
@@ -541,6 +601,10 @@ def main(argv=None):
         est_p = np.asarray([p for _, p, _ in s.trajectory])
         print(f"ATE: {ev.ate(est_ts, est_p, gt_ts, gt_p):.4f} m  "
               f"RTE: {ev.rte(est_ts, est_p, gt_ts, gt_p):.2f} %")
+        if smoothed is not None:
+            print(f"smoothed ATE: "
+                  f"{ev.ate(sm_ts, sm_p, gt_ts, gt_p):.4f} m  "
+                  f"RTE: {ev.rte(sm_ts, sm_p, gt_ts, gt_p):.2f} %")
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ the same default transfer codec (int16 with the subtractive dither), and
 prints the ATE. :func:`run` takes the world, trajectory, noise, codec,
 registration and photometric settings of the JAX package's ``run`` that the
 geometric and photometric scoreboard rows use
-(``scripts/dataset_evaluation.py``). It runs on the first CUDA device unless
-``--device`` names another, and raises where there is no card.
+(``scripts/dataset_evaluation.py``), and its offline refinements: the
+two-pass replay against the frozen final map and the batch smoothing of the
+whole trajectory. It runs on the first CUDA device unless ``--device``
+names another, and raises where there is no card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from mimosa_tpu_torch import require_cuda
+from mimosa_tpu_torch.graph import refine
 from mimosa_tpu_torch.graph import sequencer as seq
 from mimosa_tpu_torch.graph import window as win
 from mimosa_tpu_torch.io import synthetic as syn
@@ -258,50 +261,74 @@ def photo_config(lm, project_on_degeneracy=False):
 def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
         range_noise=0.0, world=None, tc=None, range_transfer=False,
         use_4dof=False, project_degenerate=False, use_photometric=False,
-        project_on_degeneracy=False):
+        project_on_degeneracy=False, two_pass=False, smooth=False):
     """Replay a synthetic sequence (default: room_clean) on ``device``
     (default: the first CUDA device; raises where there is none).
     ``use_photometric`` adds the photometric factor (PG-LIO) with the JAX
-    package's settings (:func:`photo_config`)."""
+    package's settings (:func:`photo_config`).
+
+    ``two_pass``: replay the sequence again, in a second Sequencer that
+    localizes against the first one's final map (``freeze_map``, the map
+    copied in as ``init_map``); the result is pass 2's. ``smooth``: smooth
+    the whole trajectory in one batch (``graph/refine.smooth``) over the
+    sequence's IMU stream, kept as ``sequencer.smoothed = (ts, q, p)``, with
+    its ATE as ``ate_smooth``. ``wall`` and ``n_scans`` are pass 1's."""
     device = require_cuda() if device is None else torch.device(device)
     world = world if world is not None else syn.room_world()
     tc = tc if tc is not None else syn.TrajectoryConfig(t_total=t_total)
     lm = syn.LidarModel()
     data = syn.generate(world, tc, lm, seed=seed, imu_noise=imu_noise,
                         range_noise=range_noise)
-    s = seq.Sequencer(
-        seq_cfg=seq.SequencerConfig(
-            max_scan_points=max(4096, lm.n_rows * lm.n_cols),
-            n_geo_points=4096, n_map_points=8192,
-            geo_leaf=0.4, map_insert_leaf=0.15,
-            keyframe_trans_thresh=0.3, keyframe_rot_thresh=0.15,
-            range_transfer=range_transfer),
-        win_cfg=win.WindowConfig(K=6),
-        map_cfg=vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17,
-                                  plane_min_points=5, lru_horizon=0),
-        geo_cfg=geo.GeometricConfig(
-            sigma=0.05, loc_count_thresh=50.0, use_4dof=use_4dof,
-            project_degenerate=project_degenerate),
-        photo_cfg=photo_config(lm, project_on_degeneracy)
-        if use_photometric else None,
-        device=device,
-        # the range codec's beam table: exact for this generator, whose
-        # noise is radial
-        ray_dirs=syn.beam_dirs(lm)[0] if range_transfer else None)
+
+    def make_sequencer(freeze=False, init_map=None):
+        return seq.Sequencer(
+            seq_cfg=seq.SequencerConfig(
+                max_scan_points=max(4096, lm.n_rows * lm.n_cols),
+                n_geo_points=4096, n_map_points=8192,
+                geo_leaf=0.4, map_insert_leaf=0.15,
+                keyframe_trans_thresh=0.3, keyframe_rot_thresh=0.15,
+                range_transfer=range_transfer, freeze_map=freeze),
+            win_cfg=win.WindowConfig(K=6),
+            map_cfg=vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17,
+                                      plane_min_points=5, lru_horizon=0),
+            geo_cfg=geo.GeometricConfig(
+                sigma=0.05, loc_count_thresh=50.0, use_4dof=use_4dof,
+                project_degenerate=project_degenerate),
+            photo_cfg=photo_config(lm, project_on_degeneracy)
+            if use_photometric else None,
+            device=device, init_map=init_map,
+            # the range codec's beam table: exact for this generator, whose
+            # noise is radial
+            ray_dirs=syn.beam_dirs(lm)[0] if range_transfer else None)
+
+    s = make_sequencer()
     t0 = time.perf_counter()
     n_scans = replay(s, data)
     if s.device.type == "cuda":
         torch.cuda.synchronize(s.device)
     wall = time.perf_counter() - t0
+    if two_pass:
+        # mapping -> localization: every scan, the earliest too, registers
+        # against the complete final map
+        s = make_sequencer(freeze=True, init_map=s.vmap)
+        replay(s, data)
     ate = trajectory_ate(s, data)
+    ate_smooth = None
+    if smooth:
+        imu = data["imu"]
+        s.smoothed = refine.smooth(s, imu["ts"], imu["acc"], imu["gyro"])
+        sm_ts, _, sm_p = s.smoothed
+        ate_smooth = syn.ate_rmse(sm_ts, sm_p, data["gt"]["ts"],
+                                  data["gt"]["pos"])
     if verbose:
         print(f"replayed {n_scans} scans in {wall:.1f}s "
               f"({n_scans / max(wall, 1e-9):.1f} scans/s incl. first-call "
               f"set-up) on {s.device}")
         print(f"counters: {s.counters}")
-        print(f"ATE RMSE: {ate:.4f} m (gate: < 0.010 m)")
+        print(f"ATE RMSE: {ate:.4f} m (gate: < 0.010 m)"
+              + (f"  smoothed: {ate_smooth:.4f} m" if smooth else ""))
     return dict(ate=ate, wall=wall, n_scans=n_scans, counters=s.counters,
-                sequencer=s, data=data)
+                sequencer=s, data=data, ate_smooth=ate_smooth)
 
 
 if __name__ == "__main__":

@@ -276,6 +276,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    assert callable(getattr(Sequencer, f)), f\n"
         "from mimosa_tpu_torch.io import replay, synthetic_replay\n"
         "assert 'bulk' not in replay.NOT_PORTED\n"
+        # the offline refinement (item 13)
+        "for n in ('graph.refine', 'parallel.window_shard'):\n"
+        "    assert 'mimosa_tpu_torch.' + n in names, names\n"
+        "assert not {'two_pass', 'smooth'} & set(replay.NOT_PORTED)\n"
+        "import inspect\n"
+        "assert {'two_pass', 'smooth'} <= set(inspect.signature("
+        "synthetic_replay.run).parameters)\n"
+        "assert 'init_map' in inspect.signature(Sequencer).parameters\n"
         "assert callable(synthetic_replay.bulk_stream)\n"
         "assert len(names) > 12, names\n"
         "assert not bad, bad\n"
@@ -287,13 +295,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_sequencer_refuses_unported_settings():
-    """Rescue, rematch and the frozen map are not ported; the default
-    configuration is the JAX package's (the int16 codec with its dither),
-    and the range codec needs its beam table."""
-    for kw in (dict(rescue_enabled=True), dict(rematch_on_motion=True),
-               dict(freeze_map=True)):
-        with pytest.raises(NotImplementedError):
+    """Rescue and rematch are not ported (ROADMAP item 11); the frozen map
+    is; the default configuration is the JAX package's (the int16 codec
+    with its dither), and the range codec needs its beam table."""
+    for kw in (dict(rescue_enabled=True), dict(rematch_on_motion=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
             tseq.Sequencer(tseq.SequencerConfig(**kw), device="cpu")
+    assert "freeze_map" not in tseq._PORTED_ONLY
+    assert tseq.Sequencer(tseq.SequencerConfig(freeze_map=True),
+                          device="cpu").cfg.freeze_map
     with pytest.raises(ValueError, match="ray_dirs"):
         tseq.Sequencer(tseq.SequencerConfig(range_transfer=True),
                        device="cpu")
