@@ -24,7 +24,12 @@ of JAX or of the JAX package.
    median time of each over 50 calls (CUDA events), the wrapper's host
    time a call back to back, the device kernels and device time a call
    (profiler: one kernel a call), and the SM clocks of the kernel's
-   phases (its optional trace, median of 50 launches);
+   phases (its optional trace, median of 50 launches); then the
+   conditional node's predicate kernel (``csrc/graph_cond.cu``) against
+   its plain version, the predicate read on the host: a captured step
+   whose node doubles a [8192, 3] tensor gives the host branch's bits with
+   the predicate false and true, and its time with the predicate false
+   against the host read;
 4. slice: the Sequencer at the widths of ``__graft_entry__.entry()``
    (32768 points a scan, 8192 ICP points, K=8, 2^18 voxels, f32 codec) on
    a room sequence from a 64x512 LiDAR, twice in one process: with the
@@ -142,6 +147,24 @@ of JAX or of the JAX package.
    kind, host seconds, device busy (profiler), peak device memory, the
    same bits as the replay's call; (c) the smoother on the CPU on the same
    inputs: positions within 1e-4 m of the card's;
+14. rescue: the tracking-loss rescue and rematch-on-motion
+   (``SequencerConfig.rescue_enabled``, ``rematch_on_motion``): (a) the
+   entry-width Sequencer with rescue (radius 2.5 map leaves) on a 5 s
+   room, its whole window shifted by ~2.5 leaves in x and y before scan
+   15 (tests/test_rescue.py's kick), captured and eager: slot 16 set on
+   the same scans, positions within 0.01 m, the tail ATE (the 8 states
+   after the kick left out) under 0.10 m, and over scans 13-16 the
+   profiler's ICP kernels equal to the count (the conditional node's
+   body counts its launches on the device), with each scan's device ms
+   and ops (the rescued one beside the steady ones); (b) the same room
+   unkicked, captured, rescue off then on: slot 16 never set, positions
+   within 1e-6 m, ms and device ms / ops a steady scan of each (the
+   node's cost); (c) room_noisy's Sequencer with ``rematch_on_motion``,
+   captured (ATE < 0.080 m, RTE < 0.5%) against rematch off (ms and
+   device ms / ops a steady scan), and eager over its first 20 scans
+   (within 0.01 m of the captured run there); (d) (a)'s kicked stream
+   through ``add_scans_bulk`` against merged streaming, both captured:
+   the rescued scans equal, positions within 1e-6 m;
 11. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
    the scan step, printing host ms a scan step by stage (no JSON lines);
@@ -153,10 +176,11 @@ of JAX or of the JAX package.
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
-of the kernel (launches on the entry-width, photometric, four-modality,
-bulk, online, bag-replay and refinement paths, each counted from 0 around
-its run, error, times and bound), and the line before that the seconds
-each phase took.
+of the kernels: the ICP kernel (launches on the entry-width, photometric,
+four-modality, bulk, online, bag-replay, refinement and rescue paths,
+each counted from 0 around its run, error, times and bound) and the
+conditional node's predicate kernel (its launches in (a)'s captured run);
+the line before that the seconds each phase took.
 """
 
 import bisect
@@ -498,10 +522,10 @@ def entry_replay(**kw):
     return entry_sequencer(**kw), data
 
 
-def entry_sequencer(merge_marginalize=False, **kw):
+def entry_sequencer(merge_marginalize=False, seq_kw=None, **kw):
     """The Sequencer at the widths of ``__graft_entry__.entry()`` with the
     room settings of ``synthetic_replay.run`` (and the merged slide with
-    ``merge_marginalize``)."""
+    ``merge_marginalize``, other SequencerConfig settings in ``seq_kw``)."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.lidar import geometric as geo
@@ -512,7 +536,8 @@ def entry_sequencer(merge_marginalize=False, **kw):
                             n_map_points=8192, n_gn_iters=3,
                             max_trajectory=1024, quantize_transfer=False,
                             geo_leaf=0.4, map_insert_leaf=0.15,
-                            merge_marginalize=merge_marginalize),
+                            merge_marginalize=merge_marginalize,
+                            **(seq_kw or {})),
         win.WindowConfig(K=8),
         vh.VoxelMapConfig(capacity_log2=18, leaf_size=0.4,
                           plane_min_points=5, lru_horizon=0),
@@ -2305,13 +2330,343 @@ def refine_phase(room_noisy):
     return launches, ran
 
 
+# the tracking-loss rescue (tests/test_rescue.py): a radius of 2.5 map
+# leaves, and a kick of the whole window by ~2.5 leaves in x and y
+RESCUE_KW = dict(rescue_enabled=True, rescue_radius=1.0)
+KICK = (0.85, 0.5, 0.0)
+RESCUE_T = 5.0            # [s] of the entry-width room (38 scan steps)
+KICK_AT = 15              # the scan before which the window is kicked
+RESCUE_SKIP = 8           # states after the kick left out of the tail ATE
+RESCUE_TAIL_GATE = 0.10   # [m] tests/test_rescue.py's tail ATE gate
+RESCUE_ON_OFF_GAP = 1e-6  # [m] a clean stream, rescue on against off
+REMATCH_EAGER_SCANS = 20  # the eager rematch run's depth (of 120 scans)
+
+
+def kick(s, dp):
+    """Shift every window state, values and linearization points, by dp:
+    the map then disagrees with everything the estimator believes."""
+    dp = torch.tensor(dp, dtype=s.window.p.dtype, device=s.window.p.device)
+    s.window = s.window._replace(p=s.window.p + dp,
+                                 lin_p=s.window.lin_p + dp)
+
+
+def rescue_data():
+    """The entry-width room (64x512 LiDAR), RESCUE_T seconds."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    return syn.generate(syn.room_world(), syn.TrajectoryConfig(
+        t_total=RESCUE_T), syn.LidarModel(n_rows=64, n_cols=512), seed=0)
+
+
+def scan_ranges(s, data, at=None, stretch=()):
+    """Feed every scan, a synchronize after each, the window kicked before
+    scan ``at``; the scans in ``stretch`` each in a profiler range "scan k".
+    Returns (host ms a scan, profile or None, ICP launches counted over the
+    stretch)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mimosa_tpu_torch.io.synthetic_replay import feed
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    ms, imu_i, prof, counted = [], 0, None, 0
+    for k in range(len(data["scans"])):
+        if k == at:
+            kick(s, KICK)
+        if stretch and k == stretch[0]:
+            counted = icp_cuda.launches()
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        with (record_function(f"scan {k}") if k in stretch
+              else contextlib.nullcontext()):
+            imu_i = feed(s, data, k, imu_i)
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if stretch and k == stretch[-1]:
+            prof.__exit__(None, None, None)
+            counted = icp_cuda.launches() - counted
+    return ms, prof, counted
+
+
+def tail_ate(s, data, at):
+    """ATE of the trajectory with the RESCUE_SKIP states from ``at`` on
+    left out (tests/test_rescue.py:80-88)."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    tr = s.trajectory
+    keep = [i for i in range(len(tr)) if not at <= i < at + RESCUE_SKIP]
+    return syn.ate_rmse(np.asarray([tr[i][0] for i in keep]),
+                        np.asarray([tr[i][1] for i in keep]),
+                        data["gt"]["ts"], data["gt"]["pos"])
+
+
+def rescue_kicked(data):
+    """(a) the kicked stream at entry widths, captured then eager: the
+    rescue flag on the same scans, the gap, the tail ATE, the rescued
+    scan's device ms and ops beside a steady scan's, and the profiler's
+    ICP kernels over the stretch against the count. Returns the captured
+    run's ICP launches, the profiler's, the predicate kernel's launches
+    and the captured trajectory."""
+    from mimosa_tpu_torch.ops import cond_cuda, icp_cuda
+
+    stretch = tuple(range(KICK_AT - 2, KICK_AT + 2))
+    runs = {}
+    for name, eager in (("captured", False), ("eager", True)):
+        s = entry_sequencer(seq_kw=RESCUE_KW, eager=eager)
+        icp_cuda.reset_launches()
+        cond_cuda.LAUNCHES = 0
+        ms, prof, counted = scan_ranges(s, data, KICK_AT,
+                                        stretch if not eager else ())
+        flags = s.debug_records()[:, 16]
+        runs[name] = dict(s=s, ms=ms, flags=flags, traj=positions(s),
+                          launches=icp_cuda.launches(),
+                          nodes=cond_cuda.LAUNCHES, prof=prof,
+                          counted=counted)
+        check(flags.sum() >= 1, f"rescue, {name}: the kick did not trigger "
+              f"the rescue")
+        ate = tail_ate(s, data, KICK_AT)
+        check(ate < RESCUE_TAIL_GATE, f"rescue, {name}: tail ATE {ate:.4f} "
+              f"m >= {RESCUE_TAIL_GATE}")
+        runs[name]["ate"] = ate
+        print(f"[rescue] (a) {name}: rescued scans (slot 16) "
+              f"{(np.nonzero(flags)[0] + 1).tolist()} of {len(flags)} "
+              f"(the window kicked before scan {KICK_AT}), tail ATE "
+              f"{ate:.5f} m (gate {RESCUE_TAIL_GATE}, the {RESCUE_SKIP} "
+              f"states after the kick left out), ICP launches "
+              f"{runs[name]['launches']}, ms a scan (synchronized) median "
+              f"{statistics.median(ms[3:]):.2f}, the rescued scan "
+              f"{max(ms[KICK_AT - 1:KICK_AT + 1]):.2f}"
+              + ("" if eager else " (under the profiler)"), flush=True)
+    cap, eag = runs["captured"], runs["eager"]
+    check(np.array_equal(cap["flags"], eag["flags"]), "rescue: captured and "
+          "eager rescued other scans")
+    gap = float(np.abs(cap["traj"] - eag["traj"]).max())
+    check(gap < CAPTURE_GAP, f"rescue: captured and eager positions differ "
+          f"by {gap:.4f} m")
+    events = cap["prof"].events()
+    ran = sum(1 for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "icp_linearize_kernel" in e.name)
+    cap["ran"] = ran
+    check(ran == cap["counted"], f"rescue: the profiler saw {ran} ICP "
+          f"kernels over scans {stretch[0]}-{stretch[-1]}, the count says "
+          f"{cap['counted']}")
+    dev = busy_by_range(events, [f"scan {k}" for k in stretch])
+    rescued = [k for k in stretch if cap["flags"][k - 1] > 0]
+    steady = [k for k in stretch if cap["flags"][k - 1] == 0]
+    check(rescued and steady, f"rescue: the stretch {stretch} lacks a "
+          f"rescued or a steady scan")
+    per = {k: dev[f"scan {k}"][:2] for k in stretch}
+    n1 = cap["s"].cfg.n_gn_iters + 1
+    print(f"[rescue] (a) captured vs eager: gap {gap:.2e} m (gate "
+          f"{CAPTURE_GAP}); profiled scans {stretch[0]}-{stretch[-1]}: "
+          f"{ran} ICP kernels ran (= {n1} a scan + "
+          f"{14 * 3 + n1 - 1} on each rescued scan; the count, with the "
+          f"conditional bodies' device counter, {cap['counted']}); device "
+          f"ms / ops a scan: " + ", ".join(
+              f"scan {k}{' (rescued)' if k in rescued else ''} "
+              f"{v[0]:.3f} / {v[1]}" for k, v in per.items())
+          + f"; the rescued scan adds "
+          f"{per[rescued[0]][0] - per[steady[0]][0]:.3f} ms and "
+          f"{per[rescued[0]][1] - per[steady[0]][1]} ops to a steady "
+          f"scan's; predicate kernels {cap['nodes']} (one a captured scan "
+          f"step)", flush=True)
+    return cap
+
+
+def steady_profile(s, data, n_prof=3):
+    """Replay ``data`` through ``s`` with a synchronize a scan, the last
+    ``n_prof`` scans under the profiler: (host ms a scan, device ms and
+    ops a scan over the profiled scans)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(data["scans"])
+    ms, imu_i = replay_timed(s, data, range(n - n_prof))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay_timed(s, data, range(n - n_prof, n), imu_i)
+    busy, n_dev = device_busy_ms(prof.events())
+    return ms, busy / n_prof, n_dev / n_prof
+
+
+def rescue_clean(data):
+    """(b) the clean stream captured, rescue off then on: no rescue, the
+    same positions, and the node's cost a steady scan."""
+    out = {}
+    for name, kw in (("off", None), ("on", RESCUE_KW)):
+        s = entry_sequencer(seq_kw=kw)
+        ms, busy, ops = steady_profile(s, data)
+        out[name] = dict(traj=positions(s), flags=s.debug_records()[:, 16],
+                         med=statistics.median(ms[5:]), busy=busy, ops=ops)
+    check(out["on"]["flags"].sum() == 0, "rescue: the clean stream was "
+          "rescued")
+    gap = float(np.abs(out["on"]["traj"] - out["off"]["traj"]).max())
+    check(gap <= RESCUE_ON_OFF_GAP, f"rescue: a clean stream with rescue on "
+          f"differs from off by {gap:.3e} m")
+    on, off = out["on"], out["off"]
+    print(f"[rescue] (b) clean stream, captured, rescue on vs off: slot 16 "
+          f"sum 0, gap {gap:.2e} m (gate {RESCUE_ON_OFF_GAP}); ms a steady "
+          f"scan (synchronized, median) {on['med']:.2f} vs {off['med']:.2f}; "
+          f"device ms / ops a scan (last 3) {on['busy']:.3f} / "
+          f"{on['ops']:.0f} vs {off['busy']:.3f} / {off['ops']:.0f}: the "
+          f"node adds {on['busy'] - off['busy']:.3f} ms and "
+          f"{on['ops'] - off['ops']:.0f} ops a scan", flush=True)
+
+
+def rematch_sequencer(rematch, eager=False):
+    """room_noisy's Sequencer (``synthetic_replay.run``'s room settings:
+    16x256 LiDAR, 4096 points, K=6, 2^17 voxels, int16 codec) with
+    ``rematch_on_motion``."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.mapping import voxel_hash as vh
+
+    return seq.Sequencer(
+        seq.SequencerConfig(max_scan_points=4096, n_geo_points=4096,
+                            n_map_points=8192, geo_leaf=0.4,
+                            map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
+                            keyframe_rot_thresh=0.15,
+                            rematch_on_motion=rematch),
+        win.WindowConfig(K=6),
+        vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17, plane_min_points=5,
+                          lru_horizon=0),
+        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), eager=eager)
+
+
+def rescue_rematch():
+    """(c) room_noisy with rematch_on_motion, captured (its ATE and RTE
+    gates) and eager over its first REMATCH_EAGER_SCANS scans (the
+    captured run's states there within the capture gate); device ms a
+    scan, rematch on against off."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
+
+    data = syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=12.0),
+                        syn.LidarModel(), seed=0, **NOISY)
+    out = {}
+    for name, rematch in (("off", False), ("on", True)):
+        s = rematch_sequencer(rematch)
+        ms, busy, ops = steady_profile(s, data)
+        out[name] = dict(s=s, med=statistics.median(ms[5:]), busy=busy,
+                         ops=ops, ate=trajectory_ate(s, data),
+                         rte=row_rte(s, data))
+    on, off = out["on"], out["off"]
+    check(on["ate"] < 0.080, f"rematch: room_noisy ATE {on['ate']:.4f} m "
+          f">= 0.080")
+    check(on["rte"] < 0.5, f"rematch: room_noisy RTE {on['rte']:.3f}% >= "
+          f"0.5%")
+    short = dict(data, scans=data["scans"][:REMATCH_EAGER_SCANS])
+    eag = rematch_sequencer(True, eager=True)
+    replay_timed(eag, short, range(REMATCH_EAGER_SCANS))
+    pe = positions(eag)
+    gap = float(np.abs(positions(on["s"])[:len(pe)] - pe).max())
+    check(gap < CAPTURE_GAP, f"rematch: captured and eager positions differ "
+          f"by {gap:.4f} m")
+    print(f"[rescue] (c) room_noisy with rematch_on_motion, captured: ATE "
+          f"{on['ate']:.5f} m (gate 0.080), RTE {on['rte']:.3f}% (gate "
+          f"0.5%); without: {off['ate']:.5f} m, {off['rte']:.3f}%; eager "
+          f"over the first {REMATCH_EAGER_SCANS} scans against captured: gap "
+          f"{gap:.2e} m (gate {CAPTURE_GAP}); ms a steady scan "
+          f"(synchronized, median) {on['med']:.2f} vs {off['med']:.2f}; "
+          f"device ms / ops a scan (last 3) {on['busy']:.3f} / "
+          f"{on['ops']:.0f} vs {off['busy']:.3f} / {off['ops']:.0f}: "
+          f"rematch adds {on['busy'] - off['busy']:.3f} ms and "
+          f"{on['ops'] - off['ops']:.0f} ops a scan", flush=True)
+
+
+def rescue_bulk(data):
+    """(d) the kicked stream through add_scans_bulk (the rescued scan the
+    first of a chunk) against merged streaming, both captured."""
+    scans, imu = data["scans"], data["imu"]
+    b = entry_sequencer(seq_kw=RESCUE_KW)
+    s = entry_sequencer(merge_marginalize=True, seq_kw=RESCUE_KW)
+    for x in (b, s):
+        x.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    b.add_scans_bulk(scans[:KICK_AT], chunk=BULK_MM_CHUNK)
+    kick(b, KICK)
+    b.add_scans_bulk(scans[KICK_AT:], chunk=BULK_MM_CHUNK)
+    for k, sc in enumerate(scans):
+        if k == KICK_AT:
+            kick(s, KICK)
+        s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"], sc["valid"])
+    torch.cuda.synchronize()
+    fb, fs = b.debug_records()[:, 16], s.debug_records()[:, 16]
+    check(fb.sum() >= 1 and np.array_equal(fb, fs), f"rescue bulk: rescued "
+          f"scans {(np.nonzero(fb)[0] + 1).tolist()} against streaming's "
+          f"{(np.nonzero(fs)[0] + 1).tolist()}")
+    check(b.bulk_counts["in_chunks"] > 0, f"rescue bulk: no chunk ran: "
+          f"{b.bulk_counts}")
+    gap = bulk_gap(b, s, "rescue bulk")
+    print(f"[rescue] (d) the kicked stream in bulk (chunks of "
+          f"{BULK_MM_CHUNK}) against merged streaming: rescued scans "
+          f"{(np.nonzero(fb)[0] + 1).tolist()} in both, gap {gap:.2e} m (gate "
+          f"{BULK_GAP}), {b.bulk_counts}", flush=True)
+
+
+def rescue_phase():
+    """The tracking-loss rescue and rematch-on-motion: (a) a kicked stream
+    at entry widths captured and eager, (b) a clean stream rescue on and
+    off, (c) room_noisy with rematch, (d) the kicked stream in bulk.
+    Returns (a)'s captured run."""
+    data = rescue_data()
+    cap = rescue_kicked(data)
+    rescue_clean(data)
+    rescue_rematch()
+    rescue_bulk(data)
+    return cap
+
+
+def cond_kernel_phase(dev):
+    """The conditional node's predicate kernel (``ops/cond_cuda.py``)
+    against its plain version, the host read of the predicate: a graph
+    whose node doubles a [8192, 3] tensor, replayed with the predicate
+    false and true, against the same choice made on the host. Its time: a
+    step of that graph with the predicate false (the input copy, the
+    kernel and the node, the body skipped) against the host read."""
+    from mimosa_tpu_torch.graph import captured
+
+    x0 = torch.arange(8192 * 3, dtype=torch.float32,
+                      device=dev).reshape(8192, 3)
+    flag = torch.zeros(1, device=dev)
+
+    def fn(state, flag):
+        (y,) = state
+        return captured.cond(flag[0] > 0.5, lambda: (y * 2.0,), (y,))
+
+    steps = captured.CapturedSteps(dev)
+    x, ref, err = x0.clone(), x0.clone(), 0.0
+    for f in (0, 1, 0, 1, 1, 0):
+        flag.fill_(float(f))
+        (x,) = steps.run("cond", fn, (x,), (flag,))
+        ref = ref * 2.0 if f else ref
+        torch.cuda.synchronize()
+        err = max(err, float((x - ref).abs().max()))
+    check(err == 0.0, f"cond: the node's result differs from the host "
+          f"branch's by {err}")
+    flag.fill_(0.0)
+    ms = cuda_ms(lambda: steps.run("cond", fn, (x,), (flag,)))
+    pred = flag[0] > 0.5
+    plain_ms = cuda_ms(lambda: bool(pred))
+    nbytes = 1
+    bound_ms = 1e3 * nbytes / HBM_BYTES_S
+    print(f"[kernel] cond predicate: a node holding a [8192, 3] doubling "
+          f"replayed with the predicate false and true equals the host "
+          f"branch (max |d| {err}); a step, predicate false, {ms:.4f} ms "
+          f"against the host read {plain_ms:.4f} ms (median of 50, CUDA "
+          f"events); bound {1e3 * bound_ms:.6f} us by bytes", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
     from mimosa_tpu_torch import native, require_cuda
-    from mimosa_tpu_torch.ops import icp_cuda
+    from mimosa_tpu_torch.ops import cond_cuda, icp_cuda
 
     dev = require_cuda()
     smi = nvidia_smi()
@@ -2325,6 +2680,9 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
+    cond_cuda.build()
+    print(f"[build] {cond_cuda.SOURCE.name} -> {icp_cuda.BUILD_DIR} in "
+          f"{cond_cuda.build_info[0]:.1f} s", flush=True)
     t0 = time.perf_counter()
     native.build()
     print(f"[build] {native.SOURCES[0].name} -> {native.BUILD_DIR} "
@@ -2338,6 +2696,7 @@ def main():
         chunk_graph_phase()
         return 0
     timings = kernel_phase(dev)
+    cond_timing = cond_kernel_phase(dev)
     clock = [("start", time.perf_counter())]
     launches, ran = slice_phase()
     clock.append(("slice", time.perf_counter()))
@@ -2356,6 +2715,8 @@ def main():
     clock.append(("replay", time.perf_counter()))
     refine_launches, refine_ran = refine_phase(rows["room_noisy"])
     clock.append(("refine", time.perf_counter()))
+    rescue = rescue_phase()
+    clock.append(("rescue", time.perf_counter()))
     print("[clock] seconds by phase: " + ", ".join(
         f"{n} {t - t_prev:.1f}" for (_, t_prev), (n, t)
         in zip(clock, clock[1:])), flush=True)
@@ -2380,8 +2741,15 @@ def main():
                launches_bulk=bulk_launches, profiled_runs_bulk=bulk_ran,
                launches_bulk_mixed=bulk_mixed_launches,
                launches_refine=refine_launches,
-               profiled_runs_refine=refine_ran)
-    print(json.dumps({"kernels": [rec]}))
+               profiled_runs_refine=refine_ran,
+               launches_rescue=rescue["launches"],
+               profiled_runs_rescue=rescue["ran"])
+    cond_rec = dict(name="cond_predicate", route="cuda",
+                    source="mimosa_tpu_torch/csrc/graph_cond.cu",
+                    replaces="mimosa_tpu/graph/sequencer.py:2348",
+                    launches=rescue["nodes"], **cond_timing,
+                    library_ms=None)
+    print(json.dumps({"kernels": [rec, cond_rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,10 @@ def quat_identity(dtype=torch.float32, device=None):
     return torch.eye(1, 4, dtype=dtype, device=device)[0]
 
 
+def quat_normalize(q):
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
 def quat_mul(q1, q2):
     """Hamilton product q1 ⊗ q2 (batched)."""
     w1, x1, y1, z1 = q1.unbind(-1)

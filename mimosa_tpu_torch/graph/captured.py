@@ -21,20 +21,82 @@ only replaced by other tensors (initialization, a loaded state), their
 values are copied in. A capture that fails raises: nothing falls back to
 eager execution.
 
+A branch that a step takes only on some inputs (the scan step's
+tracking-loss rescue) is :func:`cond`: under capture its body is recorded
+into a conditional node of the graph, which runs it where a device
+predicate holds, so a replay still reads nothing back to the host. The
+node's outputs are buffers made before it, which the body overwrites; an
+eager warm-up runs the body whatever the predicate, so its library handles
+and workspaces exist before the capture.
+
 ``ops.icp_cuda.LAUNCHES`` counts the ICP kernel's launches: a capture
 records the kernel without running it, so the count a graph recorded is
-taken back after the capture and added again at each replay. That count
-is bookkeeping; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold it
-against the kernels the profiler sees run on the card.
+taken back after the capture and added again at each replay. Launches
+inside a conditional node are counted on the device by the node itself
+(``icp_cuda.body_counter``; ``icp_cuda.launches()`` reads them). That
+count is bookkeeping; ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+hold it against the kernels the profiler sees run on the card.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 
 import torch
+import torch.utils._pytree as pytree
 
-from mimosa_tpu_torch.ops import icp_cuda
+from mimosa_tpu_torch.ops import cond_cuda, icp_cuda
+
+# this thread's step in progress: ``warming`` while a variant runs its
+# eager warm-up (cond then runs its body whatever the predicate), ``pool``
+# the memory pool of the graph being captured (a node's body goes there)
+_step = threading.local()
+
+
+def cond(pred, body, otherwise):
+    """``body()`` where the 0-d bool tensor ``pred`` holds, else
+    ``otherwise`` (tensors, or tuples and NamedTuples of them, with the
+    structure, shapes and dtypes ``body()`` returns).
+
+    Under a CUDA graph capture the body is recorded into an ``if`` node of
+    the graph, so the choice is made on the device at each replay: the
+    outputs are copies of ``otherwise`` made before the node, which the
+    body overwrites in place. Outside a capture the predicate is read on
+    the host (the CPU, an eager step, a variant's warm-up)."""
+    if pred.is_cuda:
+        if torch.cuda.is_current_stream_capturing():
+            return _if_node(pred, body, otherwise)
+        # made before any capture
+        cond_cuda.prepare(pred.device)
+        icp_cuda.body_counter(pred.device)
+    if getattr(_step, "warming", False):
+        taken = body()
+        return taken if bool(pred) else otherwise
+    return body() if bool(pred) else otherwise
+
+
+def _if_node(pred, body, otherwise):
+    """Record ``body`` into a conditional node keyed on ``pred`` (see
+    :func:`cond`). The ICP launches it records leave the graph's count and
+    are added on the device by the body itself."""
+    leaves, spec = pytree.tree_flatten(otherwise)
+    out = [x.clone() for x in leaves]
+    before = icp_cuda.LAUNCHES
+    try:
+        with cond_cuda.if_node(pred, _step.pool):
+            taken, taken_spec = pytree.tree_flatten(body())
+            if taken_spec != spec:
+                raise ValueError("cond: the body's outputs are not shaped "
+                                 "as its alternative")
+            for o, t in zip(out, taken):
+                o.copy_(t)
+            n = icp_cuda.LAUNCHES - before
+            if n:
+                icp_cuda.body_counter(pred.device).add_(n)
+    finally:
+        icp_cuda.LAUNCHES = before
+    return pytree.tree_unflatten(out, spec)
 
 
 def flatten(state):
@@ -86,6 +148,7 @@ class CapturedSteps:
     def __init__(self, device):
         self.device = torch.device(device)
         self.graphs = {}        # variant -> (CUDAGraph, ICP launches)
+        self.nodes = {}         # variant -> conditional nodes its graph holds
         self.warm = set()       # variants that ran their eager warm-up
         self.captures = 0       # graphs captured so far (all variants)
         self.replays = 0
@@ -131,17 +194,24 @@ class CapturedSteps:
         if key not in self.warm:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                out = fn(unflatten(bufs, self._spec), *ins)
-                write_back(bufs, flatten(out)[0])
+            _step.warming = True
+            try:
+                with torch.cuda.stream(side):
+                    out = fn(unflatten(bufs, self._spec), *ins)
+                    write_back(bufs, flatten(out)[0])
+            finally:
+                _step.warming = False
             torch.cuda.current_stream(self.device).wait_stream(side)
             self.warm.add(key)
         else:
             if key not in self.graphs:
-                self.graphs[key] = self._capture(fn, bufs, ins)
+                graph, launches, self.nodes[key] = self._capture(fn, bufs,
+                                                                 ins)
+                self.graphs[key] = (graph, launches)
             graph, launches = self.graphs[key]
             graph.replay()
             icp_cuda.LAUNCHES += launches
+            cond_cuda.LAUNCHES += self.nodes[key]
             self.replays += 1
         return unflatten(bufs, self._spec)
 
@@ -151,19 +221,23 @@ class CapturedSteps:
         resources of unrelated objects (an old Sequencer's graphs), a call
         a capture does not allow. Other threads' CUDA calls do not end
         this thread's capture (``thread_local``)."""
-        graph = torch.cuda.CUDAGraph()
-        before = icp_cuda.LAUNCHES
+        graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
+        before, nodes = icp_cuda.LAUNCHES, cond_cuda.LAUNCHES
         collecting = gc.isenabled()
         try:
             # torch.cuda.graph collects once before the capture starts
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
                 gc.disable()
+                _step.pool = pool
                 out = fn(unflatten(bufs, self._spec), *ins)
                 write_back(bufs, flatten(out)[0])
         finally:
+            _step.pool = None
             if collecting:
                 gc.enable()
             launches = icp_cuda.LAUNCHES - before
             icp_cuda.LAUNCHES = before
+            nodes, cond_cuda.LAUNCHES = cond_cuda.LAUNCHES - nodes, nodes
         self.captures += 1
-        return graph, launches
+        return graph, launches, nodes

@@ -50,8 +50,12 @@ variant with its inputs taken from rows of the device slabs.
 keyframe ring as they came in (pass 2 of the two-pass refinement, or
 localization against a prior map given as ``init_map``).
 
-Not ported yet (the constructor refuses these settings): rescue and
-rematch (ROADMAP item 11).
+The scan step (not the late-scan step) also carries the JAX package's two
+optional branches: ``rematch_on_motion`` (points that moved past a quarter
+leaf during GN are matched again) and ``rescue_enabled`` (a batched
+multi-start search when the scan's inliers collapse, recorded on the card
+as a conditional node of the step's graph; debug slot 16 flags the scans
+it ran on).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ import torch
 from mimosa_tpu_torch import native, require_cuda
 from mimosa_tpu_torch.core import lie
 from mimosa_tpu_torch.graph import window as win
-from mimosa_tpu_torch.graph.captured import CapturedSteps
+from mimosa_tpu_torch.graph.captured import CapturedSteps, cond
 from mimosa_tpu_torch.imu import preintegration as pre
 from mimosa_tpu_torch.imu.buffer import ImuBuffer, estimate_attitude
 from mimosa_tpu_torch.lidar import deskew as dk
@@ -188,11 +192,6 @@ class SequencerConfig:
     rescue_yaw: float = 0.08
     rescue_min_inlier_frac: float = 0.3
     freeze_map: bool = False
-
-
-# settings whose code paths are not ported yet, with the value they need
-# (ROADMAP item 11)
-_PORTED_ONLY = dict(rematch_on_motion=False, rescue_enabled=False)
 
 
 def _scan_ncol(cfg, photo=False):
@@ -355,6 +354,107 @@ def _decode_scan(scan_f, pt_valid, t_offset, seq_cfg, d, ray_dirs=None,
     return pts, t_pts, inten, scan_f[:, tc] != -32768
 
 
+def _world_points(pts_b, q, t):
+    """Body-frame points [N,3] at pose (q, t) in the world frame, as
+    ``geo.match`` places them."""
+    return pts_b @ lie.quat_to_mat(q).T + t
+
+
+def _rematch(vmap, pts_geo, geo_valid, matches, p_da, q, t, map_cfg):
+    """Per-point re-association after a GN update (``rematch_on_motion``):
+    the points that moved more than a quarter leaf since their last
+    association take the match at the new pose (q, t), and ``p_da`` their
+    new world position, where any valid point moved. The JAX package
+    branches on that condition; here the match runs every time and the
+    selection gives the branch's result, invalid lanes included.
+    Returns (matches, p_da)."""
+    p_now = _world_points(pts_geo, q, t)
+    moved = torch.linalg.vector_norm(p_now - p_da, dim=-1) \
+        > 0.25 * map_cfg.leaf_size
+    sel = moved & (moved & geo_valid).any()
+    fresh = vh.query_planes(vmap, p_now, map_cfg)
+    matches = tuple(torch.where(sel.reshape(-1, *[1] * (m.ndim - 1)), f, m)
+                    for f, m in zip(fresh, matches))
+    return matches, torch.where(sel[:, None], p_now, p_da)
+
+
+# the window fields the rescue changes
+_RESCUE_FIELDS = ("q", "p", "v", "bg", "ba", "g_dir", "lin_q", "lin_p")
+
+
+@functools.lru_cache(maxsize=None)
+def _rescue_candidates(rr, ry, dtype, device):
+    """The rescue's 13 candidate offsets [dx, dy, dz, yaw] around the
+    predicted pose: the centre, 6 axis offsets of ``rr``, 4 diagonals of
+    0.7071 ``rr`` and 2 yaw twists of ``ry``; made once per (value,
+    device, dtype), by the first call of a step variant (its eager
+    warm-up), so a captured step holds no host copy."""
+    dg = 0.7071 * rr
+    return torch.tensor(
+        [[0, 0, 0, 0],
+         [rr, 0, 0, 0], [-rr, 0, 0, 0], [0, rr, 0, 0], [0, -rr, 0, 0],
+         [0, 0, rr, 0], [0, 0, -rr, 0],
+         [dg, dg, 0, 0], [dg, -dg, 0, 0], [-dg, dg, 0, 0], [-dg, -dg, 0, 0],
+         [0, 0, 0, ry], [0, 0, 0, -ry]], dtype=dtype, device=device)
+
+
+def _rescue_search(vmap, pts_geo, geo_valid, g_dir, q_conv, p_conv, q_pre,
+                   p_pre, cands, *, map_cfg, geo_cfg):
+    """The rescue's multi-start search, batched: the converged pose (row
+    0) and the 13 candidates around the predicted one (rows 1-13) are
+    matched in one query, each refined by 2 damped pose-only GN steps
+    against its own matches (one ICP launch a pose and step, one batched
+    6x6 solve a step), matched again and scored by inlier count minus
+    mean |r| / sigma. Returns the first best pose (q, t)."""
+    q_c = lie.quat_normalize(lie.quat_mul(
+        lie.exp_so3(-g_dir * cands[:, 3:4]), q_pre))   # yaw about up
+    qs = torch.cat([q_conv[None], q_c])
+    ts = torch.cat([p_conv[None], p_pre + cands[:, :3]])
+    B, n = qs.shape[0], pts_geo.shape[0]
+
+    def match(qs, ts):
+        pw = pts_geo @ lie.quat_to_mat(qs).transpose(1, 2) + ts[:, None]
+        normal, mean, found = vh.query_planes(vmap, pw.reshape(-1, 3),
+                                              map_cfg)
+        return normal.view(B, n, 3), mean.view(B, n, 3), found.view(B, n)
+
+    def linearize(m, qs, ts):
+        return [icp_cuda.linearize((m[0][i], m[1][i], m[2][i]), pts_geo,
+                                   geo_valid, qs[i], ts[i], geo_cfg,
+                                   g_dir=g_dir) for i in range(B)]
+
+    m = match(qs, ts)
+    eye = torch.eye(6, dtype=qs.dtype, device=qs.device)
+    for _ in range(2):
+        res = linearize(m, qs, ts)
+        H = torch.stack([r.H for r in res])
+        b = torch.stack([r.b for r in res])
+        lam = 1e-3 * torch.diagonal(H, dim1=1, dim2=2).sum(-1) / 6.0 + 1e-6
+        dx = torch.linalg.solve_ex(H + lam[:, None, None] * eye, -b,
+                                   check_errors=False)[0]
+        dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+        qs, ts = lie.se3_retract(qs, ts, dx)
+    res = linearize(match(qs, ts), qs, ts)
+    score = torch.stack([r.num_inlier.to(qs.dtype)
+                         - r.mean_abs_res / geo_cfg.sigma for r in res])
+    best = torch.argmax(score)
+    return _row(qs, best), _row(ts, best)
+
+
+def _rescue_realign(window, slot, q_b, t_b, p_pre):
+    """Translate every active state, values and linearization points, by
+    the winner's offset from the predicted position, and set the slot to
+    the winner: the relative factors do not see a global translation."""
+    delta = t_b - p_pre
+    act = window.active[:, None]
+    p = torch.where(act, window.p + delta, window.p)
+    lin_p = torch.where(act, window.lin_p + delta, window.lin_p)
+    return window._replace(
+        q=_put_row(window.q, slot, q_b), p=_put_row(p, slot, t_b),
+        lin_q=_put_row(window.lin_q, slot, q_b),
+        lin_p=_put_row(lin_p, slot, t_b))
+
+
 def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
                kf_q, kf_p, kf_count, traj_q, traj_p, debug_rec, q_bl, t_bl,
                ray_dirs=None, dither=None, static_mask=None, features=None,
@@ -378,7 +478,15 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     directions with ``project_on_degeneracy``) and ``features`` is tracked
     and topped up at the converged pose; the step then also returns the new
     feature store. ``static_mask`` is the resident [R,C] static mask or
-    None."""
+    None.
+
+    ``rematch_on_motion`` re-associates moved points after every GN update
+    (:func:`_rematch`). ``rescue_enabled`` runs, where the last GN
+    iteration's inliers fall below ``rescue_min_inlier_frac`` of the valid
+    geometric points, the candidate search (:func:`_rescue_search`), the
+    window's realignment to the winner and ``n_gn_iters`` geometric-only
+    window GN iterations; the absorb then uses the winner's matches, and
+    debug slot 16 is 1."""
     d = window.p.dtype
     scalars = imu_f[-1]
     imu_f = imu_f[:-1]
@@ -464,9 +572,15 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     def pose():
         return _row(window.q, slot), _row(window.p, slot)
 
-    # 5) GN with live ICP relinearization against correspondences made
-    # once at the predicted pose; the IMU Jacobians are made once too
-    matches = geo.match(vmap, pts_geo, *pose(), map_cfg)
+    # 5) GN with live ICP relinearization against correspondences made at
+    # the predicted pose (and, with rematch_on_motion, made again for the
+    # points that moved past leaf/4 after each update); the IMU Jacobians
+    # are made once. lin_iter reads the newest matches.
+    q_pre, p_pre = pose()
+    matches = geo.match(vmap, pts_geo, q_pre, p_pre, map_cfg)
+    if seq_cfg.rematch_on_motion:
+        # each point's world position at its last association
+        p_da = _world_points(pts_geo, q_pre, p_pre)
 
     def lin_iter():
         return icp_cuda.linearize(matches, pts_geo, geo_valid, *pose(),
@@ -483,6 +597,48 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
         H, rhs = win.build_system(window, preints, fv, win_cfg, meas=meas,
                                   imu_cache=imu_cache)
         window = win.apply_update(window, win.solve(H, rhs), win_cfg)
+        if seq_cfg.rematch_on_motion:
+            matches, p_da = _rematch(vmap, pts_geo, geo_valid, matches, p_da,
+                                     *pose(), map_cfg)
+
+    # 5b) tracking-loss rescue, where the last iteration's inliers fell
+    # below rescue_min_inlier_frac of the valid geometric points: a
+    # conditional node of the captured graph (graph/captured.py::cond)
+    rescued = torch.zeros((), dtype=d, device=pts_geo.device)
+    if seq_cfg.rescue_enabled:
+        n_valid = geo_valid.sum()
+        lost = (icp.num_inlier.to(d)
+                < seq_cfg.rescue_min_inlier_frac * n_valid.to(d)) \
+            & (n_valid > 0)
+        cands = _rescue_candidates(
+            seq_cfg.rescue_radius or map_cfg.leaf_size, seq_cfg.rescue_yaw,
+            d, pts_geo.device)
+
+        def rescue():
+            w2 = _rescue_realign(
+                window, slot, *_rescue_search(
+                    vmap, pts_geo, geo_valid, window.g_dir, *pose(), q_pre,
+                    p_pre, cands, map_cfg=map_cfg, geo_cfg=geo_cfg),
+                p_pre)
+            m2 = geo.match(vmap, pts_geo, _row(w2.q, slot),
+                           _row(w2.p, slot), map_cfg)
+            # the window GN from the winner's basin, geometric block only
+            for _ in range(seq_cfg.n_gn_iters):
+                icp2 = icp_cuda.linearize(m2, pts_geo, geo_valid,
+                                          _row(w2.q, slot), _row(w2.p, slot),
+                                          geo_cfg, g_dir=w2.g_dir)
+                H2, rhs2 = win.build_system(
+                    w2, preints, fv, win_cfg, meas=[(pidx, *geo_meas(icp2))],
+                    imu_cache=imu_cache)
+                w2 = win.apply_update(w2, win.solve(H2, rhs2), win_cfg)
+            return (tuple(getattr(w2, k) for k in _RESCUE_FIELDS), m2,
+                    torch.ones_like(rescued))
+
+        moved, matches, rescued = cond(
+            lost, rescue,
+            (tuple(getattr(window, k) for k in _RESCUE_FIELDS), matches,
+             rescued))
+        window = window._replace(**dict(zip(_RESCUE_FIELDS, moved)))
 
     # 6) absorb the final scan factor into the prior at converged values
     if seq_cfg.refresh_match_on_absorb:
@@ -535,8 +691,7 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     rec = torch.cat([
         icp.num_inlier.to(d).reshape(1), icp.status_counts.to(d),
         icp.mean_abs_res.reshape(1), icp.degenerate_rot.to(d),
-        icp.degenerate_trans.to(d), ph_rec,
-        torch.zeros(1, dtype=d, device=gH.device),   # rescue
+        icp.degenerate_trans.to(d), ph_rec, rescued.reshape(1),
         Hpose[iu[0], iu[1]], loc_eig])
     debug_rec = _put_row(debug_rec, scan_idx.to(torch.int64), rec)
     out = (window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p,
@@ -921,12 +1076,6 @@ class Sequencer:
                  photo_cfg: ph.PhotometricConfig = None,
                  *, device=None, dtype=torch.float32, ray_dirs=None,
                  eager=False, init_map=None):
-        for name, need in _PORTED_ONLY.items():
-            if getattr(seq_cfg, name) != need:
-                raise NotImplementedError(
-                    f"SequencerConfig.{name}={getattr(seq_cfg, name)!r} is "
-                    f"not ported yet (the port supports {name}={need!r}; "
-                    f"ROADMAP item 11)")
         if photo_cfg is not None and photo_cfg.exact_ouster \
                 and seq_cfg.point_skip != 1:
             raise ValueError(
@@ -1121,7 +1270,8 @@ class Sequencer:
         """Per-scan debug records [n_scans, 17]: num_inlier, 4 status
         counts, mean |r|, 3+3 degeneracy flags, the photometric slots
         (tracked, OOB, masked + occluded, NCC; zero without ``photo_cfg``)
-        and the rescue flag (zero: rescue is not ported)."""
+        and the rescue flag (slot 16: 1 where the tracking-loss rescue ran
+        on the scan, 0 elsewhere and without ``rescue_enabled``)."""
         return self.debug_rec[: self.scan_idx, :17].cpu().numpy()
 
     def imu_localizability_records(self):

@@ -18,26 +18,24 @@ never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from mimosa_tpu_torch.lidar import geometric as geo
+from mimosa_tpu_torch.ops import nvcc
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "icp_linearize.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mimosa_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = nvcc.CSRC / "icp_linearize.cu"
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.FLAGS + ("-Xptxas", "-v")
 
 # kernel launches: one per :func:`launch`; a captured CUDA graph adds the
-# launches it recorded at each replay (``graph/captured.py``)
+# launches it recorded at each replay (``graph/captured.py``). Launches
+# recorded inside a conditional node of a graph run only where its
+# predicate holds on the device, so that body adds them to a device counter
+# (:func:`body_counter`), which :func:`launches` folds in when asked.
 LAUNCHES = 0
+_BODY_COUNTERS = {}     # device index -> int64 0-d tensor
 
 # The kernel's output layout: ICPResult field -> (buffer, offset, shape).
 # ``csrc/icp_linearize.cu`` reports the same numbers through icp_layout(),
@@ -75,18 +73,6 @@ build_info = None
 _ready = set()
 
 
-def _nvcc():
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    path = shutil.which("nvcc")
-    if path is None and CUDA_HOME is not None:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if path is None or not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
-                           "build the ICP kernel")
-    return path
-
-
 def _expected_layout():
     return ([SIZES[F32], SIZES[I32], SIZES[U8]]
             + [LAYOUT[f][1] for f in geo.ICPResult._fields] + [BLOCKS[1]])
@@ -97,22 +83,7 @@ def build():
     global _lib, build_info
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libicp_linearize-{digest[:16]}.so"
-    t0 = time.perf_counter()
-    log = "cached"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-        log = (proc.stdout + proc.stderr).strip()
-    lib = ctypes.CDLL(str(so))
+    lib, secs, log = nvcc.build(SOURCE, NVCC_FLAGS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icp_linearize.argtypes = [p] * 8 + [i] + [f] * 7 + [p] * 5
     for fn in (lib.icp_linearize, lib.icp_layout, lib.icp_trace_points,
@@ -129,7 +100,7 @@ def build():
     if lib.icp_trace_points() != len(TRACE_POINTS):
         raise RuntimeError("kernel trace points do not match the wrapper's")
     _lib = lib
-    build_info = (time.perf_counter() - t0, log)
+    build_info = (secs, log)
     return lib
 
 
@@ -144,6 +115,39 @@ def _load(dev):
             raise RuntimeError(f"icp_init failed on {dev}: CUDA error {code}")
         _ready.add(dev.index)
     return lib
+
+
+def body_counter(device):
+    """The device's counter of launches made by conditional graph bodies.
+    It is made outside any capture (by the body's eager warm-up): a tensor
+    made during a capture would live in that graph's memory pool."""
+    device = torch.device(device)
+    c = _BODY_COUNTERS.get(device.index)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the conditional-body launch counter must be "
+                               "made before the capture")
+        c = _BODY_COUNTERS[device.index] = torch.zeros(
+            (), dtype=torch.int64, device=device)
+    return c
+
+
+def launches():
+    """``LAUNCHES`` with the conditional bodies' launches folded in: each
+    device counter is read once (a synchronize) and zeroed."""
+    global LAUNCHES
+    for c in _BODY_COUNTERS.values():
+        LAUNCHES += int(c)
+        c.zero_()
+    return LAUNCHES
+
+
+def reset_launches():
+    """Set the launch count to 0, the device counters with it."""
+    global LAUNCHES
+    for c in _BODY_COUNTERS.values():
+        c.zero_()
+    LAUNCHES = 0
 
 
 def _check_inputs(points_b, normal, mean, found, valid, q, t, g_dir):

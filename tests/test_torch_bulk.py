@@ -29,9 +29,17 @@ Bulk changes scheduling, not arithmetic, so:
 Every case asserts that at least one chunk ran. The module runs its torch
 work on one intra-op thread: the CPU's bits depend on how a reduction is
 split, and the comparisons here are bitwise.
+
+The JAX reference's run, almost all of it XLA's compile of five step
+programs, goes on a thread of its own (``jax_mm``). Run without xdist, a
+module-scoped fixture starts it with the module's first test, so the
+compile overlaps the port's replays; an xdist worker, which cannot know
+whether it will run the JAX case, starts it only for that case.
 """
 
+import concurrent.futures
 import gc
+import types
 
 import jax
 import jax.numpy as jnp
@@ -310,16 +318,65 @@ def test_photometric_f32_bulk_equals_merged_streaming(room):
 
 # ------------------------------------------------------- four-modality
 
+JAX_CASE = "test_four_modality_bulk_matches_jax"
+
+
 @pytest.fixture(scope="module")
-def mm():
+def mm_stream():
     """synthetic_replay.bulk_stream: 2 s of the room from a 16x256 LiDAR
     (the radar clock out of phase with it), 20 Hz radar of 96 targets,
     10 Hz odometry 15 ms behind the radar, and a radar frame and an
-    odometry message 2 ms after every fourth scan's end; through add_bulk,
-    merged streaming and plain streaming."""
+    odometry message 2 ms after every fourth scan's end, as add_bulk's
+    messages."""
     data, events = trep.bulk_stream(
         tsyn.TrajectoryConfig(t_total=2.0, t_stationary=1.23), LM)
-    msgs = trep.bulk_messages(events)
+    return data, trep.bulk_messages(events)
+
+
+def _jax_streaming(data, msgs):
+    """The JAX Sequencer (64-bit types off, as in production) streaming
+    the in-order events with the merged slide: its schedule and
+    trajectory."""
+    with jax.enable_x64(False):
+        j = jseq.Sequencer(
+            seq_cfg=jseq.SequencerConfig(merge_marginalize=True, **SEQ_KW),
+            win_cfg=jwin.WindowConfig(K=4),
+            map_cfg=jvh.VoxelMapConfig(**MAP_KW),
+            geo_cfg=jgeo.GeometricConfig(), dtype=jnp.float32,
+            step_cache={})
+        _replay(j, data, msgs, False)
+        return types.SimpleNamespace(
+            counters=j.counters, state_ts=j.state_ts, _traj_ts=j._traj_ts,
+            _traj_src=j._traj_src, scan_idx=j.scan_idx,
+            trajectory=j.trajectory)
+
+
+@pytest.fixture(scope="module")
+def jax_mm(mm_stream):
+    """The JAX reference of the four-modality stream, running on a thread:
+    a future of :func:`_jax_streaming`'s result (awaited at teardown, so
+    no compile outlives the module's release of JAX's programs)."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        future = pool.submit(_jax_streaming, *mm_stream)
+        yield future
+        future.result()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _start_jax_mm_early(request):
+    """Without xdist, with the JAX case selected: start ``jax_mm`` with the
+    module's first test."""
+    if getattr(request.config, "workerinput", None) is None and any(
+            item.originalname == JAX_CASE and item.module is request.module
+            for item in request.session.items):
+        request.getfixturevalue("jax_mm")
+
+
+@pytest.fixture(scope="module")
+def mm(mm_stream):
+    """The four-modality stream through add_bulk, merged streaming and
+    plain streaming."""
+    data, msgs = mm_stream
     return dict(data=data, msgs=msgs,
                 bulk=_replay(_port(), data, msgs, True),
                 merged=_replay(_port(merge_marginalize=True), data, msgs,
@@ -342,20 +399,12 @@ def test_four_modality_bulk_near_plain_streaming(mm):
     _assert_close(mm["bulk"], mm["plain"], MIXED_GAP)
 
 
-def test_four_modality_bulk_matches_jax(mm):
+def test_four_modality_bulk_matches_jax(mm, jax_mm):
     """The JAX Sequencer (64-bit types off, as in production), streaming
     the same in-order events with the merged slide: the same counters,
     state_ts and _traj_src, positions within 5e-3 m."""
-    data = mm["data"]
-    with jax.enable_x64(False):
-        j = jseq.Sequencer(
-            seq_cfg=jseq.SequencerConfig(merge_marginalize=True, **SEQ_KW),
-            win_cfg=jwin.WindowConfig(K=4),
-            map_cfg=jvh.VoxelMapConfig(**MAP_KW),
-            geo_cfg=jgeo.GeometricConfig(), dtype=jnp.float32,
-            step_cache={})
-        _replay(j, data, mm["msgs"], False)
-        jt = j.trajectory
+    j = jax_mm.result()
+    jt = j.trajectory
     b = mm["bulk"]
     assert b.bulk_counts["chunks"] >= 1
     _assert_same_schedule(b, j)

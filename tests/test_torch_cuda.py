@@ -1082,3 +1082,139 @@ def test_a_captured_chunk_makes_no_host_sync_and_launches_4_per_scan(room):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and "icp_linearize_kernel" in e.name)
     assert ran == n1 * len(chunk)
+
+
+# ------------------------------------ tracking-loss rescue and rematch
+
+RESCUE_KW = dict(rescue_enabled=True, rescue_radius=1.0)   # 2.5 map leaves
+KICK_AT = 15
+KICK = (0.85, 0.5, 0.0)       # ~2.5 leaves, as tests/test_rescue.py's kick
+SMALL_KICK = (0.21, 0.125, 0.0)
+
+
+def _kick(s, dp):
+    """Shift every window state, values and linearization points, by dp:
+    the map then disagrees with everything the estimator believes."""
+    dp = torch.tensor(dp, dtype=s.window.p.dtype, device=s.window.p.device)
+    s.window = s.window._replace(p=s.window.p + dp,
+                                 lin_p=s.window.lin_p + dp)
+
+
+@pytest.fixture(scope="module")
+def long_room(dev):
+    """The room of ``room``, 5 s: 38 scan steps, so that the tail after a
+    kick at scan 15 holds 15 states."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    return syn.generate(syn.room_world(), syn.TrajectoryConfig(t_total=5.0),
+                        syn.LidarModel(), seed=0)
+
+
+def _kicked_run(s, data, dp=KICK, at=KICK_AT, upto=None):
+    imu_i = _feed(s, data, range(at))
+    _kick(s, dp)
+    _feed(s, data, range(at, upto or len(data["scans"])), imu_i)
+    torch.cuda.synchronize()
+    return s
+
+
+def _positions(s):
+    return np.asarray([p for _, p, _ in s.trajectory])
+
+
+def test_kicked_stream_rescues_and_captured_equals_eager(long_room):
+    """The tracking-loss rescue recovers a kicked window: the flag (debug
+    slot 16) set on the same scans captured and eager, positions within
+    the capture gate (1 cm), the tail ATE (the 8 states after the kick
+    left out) under 0.10 m as in tests/test_rescue.py."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    cap = _kicked_run(_room_sequencer(False, **RESCUE_KW), long_room)
+    eag = _kicked_run(_room_sequencer(True, **RESCUE_KW), long_room)
+    fc, fe = cap.debug_records()[:, 16], eag.debug_records()[:, 16]
+    assert fc.sum() >= 1
+    np.testing.assert_array_equal(fc, fe)
+    np.testing.assert_allclose(_positions(cap), _positions(eag), atol=0.01)
+    tr = cap.trajectory
+    keep = [i for i in range(len(tr)) if not KICK_AT <= i < KICK_AT + 8]
+    ate = syn.ate_rmse(np.array([tr[i][0] for i in keep]),
+                       np.array([tr[i][1] for i in keep]),
+                       long_room["gt"]["ts"], long_room["gt"]["pos"])
+    assert ate < 0.10, ate
+
+
+def test_rescue_runs_inside_the_scan_graph_without_a_host_sync(room):
+    """The rescue is a conditional node of the captured scan step: the
+    lost scan, in a bulk chunk, replays the graph captured before the kick
+    (no capture after it, no host sync in the chunk), and the card runs
+    the body's 14 x 3 + n_gn_iters ICP kernels on the rescued scan only.
+    The count, with the body's device counter read when asked, equals the
+    profiler's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = _room_sequencer(False, **RESCUE_KW)
+    scans, imu = room["scans"], room["imu"]
+    s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    s.add_scans_bulk(scans[:KICK_AT], chunk=4)
+    assert ("scan", True, True) in s.graphs.graphs
+    captures, n1 = s.graphs.captures, s.cfg.n_gn_iters + 1
+    _kick(s, KICK)
+    torch.cuda.synchronize()
+    icp_cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.add_scans_bulk(scans[KICK_AT:KICK_AT + 2], chunk=2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert s.graphs.captures == captures
+    assert s.bulk_counts["in_chunks"] >= 2 + 4
+    flags = s.debug_records()[KICK_AT - 1:KICK_AT + 1, 16]
+    body = 14 * 3 + s.cfg.n_gn_iters
+    ran = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "icp_linearize_kernel" in e.name)
+    assert flags.sum() >= 1
+    assert ran == 2 * n1 + body * int(flags.sum())
+    assert icp_cuda.launches() == ran
+
+
+def test_clean_stream_with_rescue_on_equals_rescue_off(room):
+    """On a clean stream the node's body never runs: slot 16 stays 0 and
+    the trajectory equals the run without rescue."""
+    on = _room_sequencer(False, **RESCUE_KW)
+    off = _room_sequencer(False)
+    _feed(on, room, range(len(room["scans"])))
+    _feed(off, room, range(len(room["scans"])))
+    assert on.debug_records()[:, 16].sum() == 0
+    np.testing.assert_array_equal(_positions(on), _positions(off))
+
+
+def test_rematch_captured_equals_eager(room):
+    """rematch_on_motion after a small kick (~0.25 m: points move past a
+    quarter leaf during GN, no rescue): captured and eager within the
+    capture gate, and the run differs from the one without rematch."""
+    runs = [_kicked_run(_room_sequencer(eager, rematch_on_motion=r), room,
+                        SMALL_KICK)
+            for eager, r in ((False, True), (True, True), (False, False))]
+    np.testing.assert_allclose(_positions(runs[0]), _positions(runs[1]),
+                               atol=0.01)
+    assert np.abs(_positions(runs[0]) - _positions(runs[2])).max() > 0
+
+
+def test_kicked_bulk_equals_merged_streaming_on_the_card(long_room):
+    """The kicked stream's rescued scan inside a bulk chunk of captured
+    steps: the bits of merged streaming, slot 16 equal."""
+    scans, imu = long_room["scans"], long_room["imu"]
+    b = _room_sequencer(False, **RESCUE_KW)
+    s = _room_sequencer(False, merge_marginalize=True, **RESCUE_KW)
+    b.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    b.add_scans_bulk(scans[:KICK_AT], chunk=4)
+    _kick(b, KICK)
+    b.add_scans_bulk(scans[KICK_AT:], chunk=4)
+    _kicked_run(s, long_room)
+    assert b.bulk_counts["chunks"] > 2
+    np.testing.assert_array_equal(b.debug_records(), s.debug_records())
+    assert b.debug_records()[:, 16].sum() >= 1
+    _assert_bulk_bitwise(b, s)

@@ -295,15 +295,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_sequencer_refuses_unported_settings():
-    """Rescue and rematch are not ported (ROADMAP item 11); the frozen map
-    is; the default configuration is the JAX package's (the int16 codec
-    with its dither), and the range codec needs its beam table."""
-    for kw in (dict(rescue_enabled=True), dict(rematch_on_motion=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            tseq.Sequencer(tseq.SequencerConfig(**kw), device="cpu")
-    assert "freeze_map" not in tseq._PORTED_ONLY
-    assert tseq.Sequencer(tseq.SequencerConfig(freeze_map=True),
-                          device="cpu").cfg.freeze_map
+    """Rescue, rematch and the frozen map are ported: each setting
+    constructs on the CPU and reaches the scan step's function; the default
+    configuration is the JAX package's (the int16 codec with its dither),
+    and the range codec needs its beam table."""
+    for kw in (dict(rescue_enabled=True), dict(rematch_on_motion=True),
+               dict(rescue_enabled=True, rematch_on_motion=True),
+               dict(freeze_map=True)):
+        s = tseq.Sequencer(tseq.SequencerConfig(**kw), device="cpu")
+        for key in (("scan", False, True), ("scan", True, False)):
+            step = s._step_fn(key)
+            assert step.func is tseq._scan_state_step
+            for k, v in kw.items():
+                assert getattr(step.keywords["seq_cfg"], k) == v
     with pytest.raises(ValueError, match="ray_dirs"):
         tseq.Sequencer(tseq.SequencerConfig(range_transfer=True),
                        device="cpu")
