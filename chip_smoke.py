@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --stage-split   # only the per-stage split (11.)
     python3 chip_smoke.py --chunk-graph   # only the chunk-graph design (12.)
+    python3 chip_smoke.py --mesh          # only 4.'s captured run and 15.
 
 Drives the port (``mimosa_tpu_torch``) through its main paths on the card
 and prints one line per phase; any failure raises, so the exit code is
@@ -165,6 +166,29 @@ of JAX or of the JAX package.
    (within 0.01 m of the captured run there); (d) (a)'s kicked stream
    through ``add_scans_bulk`` against merged streaming, both captured:
    the rescued scans equal, positions within 1e-6 m;
+15. mesh: ``Sequencer(mesh=...)`` (``parallel/sharded.py``) on a world of
+   one NCCL rank on this card (a hash store, ``make_mesh(n_mp=1)``; the
+   group destroyed after the phase), its all-reduces recorded into the
+   captured scan graphs and into the rescue's conditional node: (a) 4.'s
+   entry-width room on the mesh, captured (4.'s numbers and checks, and
+   the NCCL kernels the profiler sees) against eager over its first 10
+   scans (< 0.01 m) and against 4.'s single-device captured run (< 0.05 m,
+   the JAX package's structural bound: the mesh matches afresh every GN
+   iteration), with ms, device ms and device ops a scan of both, the
+   sharding tax; (b) 6.'s four-modality stream on the mesh, captured (6.'s
+   numbers and checks: every late path, ATE < 0.08 m; radar through the
+   dp-split linearization); (c) 14.(a)'s kicked stream on the mesh,
+   captured and eager over its first 17 scans: the kicked scan rescued,
+   the same flags and positions within 0.01 m, the tail ATE < 0.10 m, and
+   over scans 13-16 the ICP launches counted equal to the code's
+   (n_gn_iters + 1 a scan, 14 x 3 + n_gn_iters more on a rescued one: the
+   candidates one after another), with the profiler's records named for
+   the kernel printed beside them (inside a conditional node's body the
+   profiler names some ~1.2 us kernels as the ICP kernel, whatever the
+   run; the count is not held against it there); (d) the scoreboard's
+   room_clean and room_noisy each through a Sequencer of its own, then
+   both through one ``step_cache`` fed scan by scan in turns: the same
+   bits, and fewer graphs captured;
 11. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
    the scan step, printing host ms a scan step by stage (no JSON lines);
@@ -177,8 +201,8 @@ of JAX or of the JAX package.
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
 of the kernels: the ICP kernel (launches on the entry-width, photometric,
-four-modality, bulk, online, bag-replay, refinement and rescue paths,
-each counted from 0 around its run, error, times and bound) and the
+four-modality, bulk, online, bag-replay, refinement, rescue and mesh
+paths, each counted from 0 around its run, error, times and bound) and the
 conditional node's predicate kernel (its launches in (a)'s captured run);
 the line before that the seconds each phase took.
 """
@@ -635,7 +659,11 @@ def slice_run(tag, label, s, data, ate_gate, stage_ranges=False):
     steady = ms[5:]           # after the first 5 scans (init included)
     busy, n_dev = device_busy_ms(events)
     check(n_dev > 0, f"{name}: the profiler saw no device work")
+    nccl = sum(1 for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "nccl" in e.name.lower())
     out = dict(name=name, launches=launches, ran=ran, steps=steps, ate=ate,
+               nccl=nccl / n_prof,
                med=statistics.median(steady),
                p90=float(np.percentile(steady, 90)), first=ms[1:5],
                busy=busy / n_prof, n_dev=n_dev / n_prof,
@@ -701,9 +729,10 @@ def captured_vs_eager(tag, cap, eag):
 
 def slice_phase():
     """The entry-width replay captured (the main path) and then eager, in
-    one process (:func:`captured_vs_eager`)."""
-    return captured_vs_eager("slice", entry_run(eager=False),
-                             entry_run(eager=True))
+    one process (:func:`captured_vs_eager`). Returns the captured run's ICP
+    launches, the profiler's ICP kernels and the captured run."""
+    cap = entry_run(eager=False)
+    return (*captured_vs_eager("slice", cap, entry_run(eager=True)), cap)
 
 
 # bench.py's trajectory, 4 s
@@ -845,19 +874,20 @@ def busy_by_range(events, names):
     return out
 
 
-def mm_run(eager, data, events):
+def mm_run(eager, data, events, mesh=None, tag="multimodal"):
     """The four-modality stream through the entry-width Sequencer, captured
     or eager, with a synchronize after each event: ms per event by kind
     (an event that ran a variant's warm-up or capture counted apart), and
     a profiled stretch around the second swapped scan's insertion with
-    each event in a profiler range named by its kind."""
+    each event in a profiler range named by its kind. ``mesh``: the
+    Sequencer on that mesh (the lines then tagged ``tag``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mimosa_tpu_torch.io.synthetic_replay import (feed_event,
                                                       trajectory_ate)
     from mimosa_tpu_torch.ops import icp_cuda
 
-    s = entry_sequencer(eager=eager)
+    s = entry_sequencer(eager=eager, mesh=mesh)
     name = "eager" if eager else "captured"
     check((s.graphs is None) == eager, "the Sequencer's capture setting")
     # the stretch: the later of the two swapped scans (n/2 + 3), arriving
@@ -929,12 +959,12 @@ def mm_run(eager, data, events):
     busy = sum(out["dev"][k][0] / out["dev"][k][2] * len(v)
                for k, v in out["ms"].items())
     out["idle"] = 100 * (1 - busy / sum(sum(v) for v in out["ms"].values()))
-    print(f"[multimodal] {name}: {len(events)} events ({steps} scan steps, "
+    print(f"[{tag}] {name}: {len(events)} events ({steps} scan steps, "
           f"{c['radar_frames']} radar frames, {c['odom_msgs']} odometry "
           f"messages), ICP kernel launches {launches} (= {n1} x {steps}), "
           f"ATE {ate:.5f} m (gate {ENTRY_ATE_GATE}), peak device memory "
           f"{out['mem']:.0f} MiB; counters {c}", flush=True)
-    print(f"[multimodal] {name}: host ms an event (synchronized), median / "
+    print(f"[{tag}] {name}: host ms an event (synchronized), median / "
           f"p90 / events: " + ", ".join(
               f"{k} {statistics.median(v):.2f} / "
               f"{float(np.percentile(v, 90)):.2f} / {len(v)}"
@@ -942,7 +972,7 @@ def mm_run(eager, data, events):
           + (f"; {len(out['setup_ms'])} events ran a warm-up or a capture, "
              f"{sum(out['setup_ms']) / 1e3:.2f} s in all"
              if out["setup_ms"] else ""), flush=True)
-    print(f"[multimodal] {name}: profiled stretch of {w1 - w0} events: "
+    print(f"[{tag}] {name}: profiled stretch of {w1 - w0} events: "
           f"{ran} ICP kernels ran (= {n1} x {win_steps} scan steps), device "
           f"ms / device ops an event by kind: " + ", ".join(
               f"{k} {v[0] / v[2]:.3f} / {v[1] / v[2]:.0f} ({v[2]})"
@@ -958,7 +988,7 @@ def mm_run(eager, data, events):
         check(g.captures == len(g.graphs), f"{g.captures} captures of "
               f"{len(g.graphs)} variants: one was captured again")
         out["graphs"] = {str(variant(k)): g.graphs[k][1] for k in g.graphs}
-        print(f"[multimodal] captured: {g.captures} graphs, one a variant, "
+        print(f"[{tag}] captured: {g.captures} graphs, one a variant, "
               f"{g.replays} replays; ICP launches each records: "
               + ", ".join(f"{k} {v}" for k, v in out["graphs"].items()),
               flush=True)
@@ -1578,7 +1608,7 @@ def chunk_graph_phase():
     graphs = g.graphs
     bufs = graphs._adopt(g._state())
     spec = graphs._spec
-    fns = {key: g._steps[key] for key, _ in recorded}
+    fns = {key: g._step_cache[g._ckey("step", *key)] for key, _ in recorded}
     graph = torch.cuda.CUDAGraph()
     mem0 = torch.cuda.memory_reserved()
     launches0 = icp_cuda.LAUNCHES
@@ -2514,10 +2544,10 @@ def rescue_clean(data):
           f"{on['ops'] - off['ops']:.0f} ops a scan", flush=True)
 
 
-def rematch_sequencer(rematch, eager=False):
+def rematch_sequencer(rematch, eager=False, **kw):
     """room_noisy's Sequencer (``synthetic_replay.run``'s room settings:
     16x256 LiDAR, 4096 points, K=6, 2^17 voxels, int16 codec) with
-    ``rematch_on_motion``."""
+    ``rematch_on_motion``; ``kw`` as the Sequencer takes them."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.lidar import geometric as geo
@@ -2532,7 +2562,8 @@ def rematch_sequencer(rematch, eager=False):
         win.WindowConfig(K=6),
         vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17, plane_min_points=5,
                           lru_horizon=0),
-        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), eager=eager)
+        geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0), eager=eager,
+        **kw)
 
 
 def rescue_rematch():
@@ -2618,6 +2649,205 @@ def rescue_phase():
     return cap
 
 
+MESH_GAP = 0.05           # [m] mesh against single: tests/test_parallel.py:459
+MESH_EAGER_SCANS = 10     # the eager mesh run's depth at entry widths
+MESH_KICK_EAGER = KICK_AT + 2   # ... and on the kicked stream
+SHARED_ROWS = (("room_clean", {}), ("room_noisy", NOISY))
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A process group of one NCCL rank on this card (a hash store, no
+    network) and the ("dp", "mp") mesh over it; destroyed on the way
+    out."""
+    import torch.distributed as dist
+
+    from mimosa_tpu_torch.parallel import sharded
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield sharded.make_mesh(n_mp=1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_entry(mesh, single):
+    """(a) the entry-width room through Sequencer(mesh=...), captured (the
+    numbers of slice_run), eager over its first MESH_EAGER_SCANS scans, and
+    held against ``single``, the slice phase's captured single-device run
+    on the same data."""
+    s, data = entry_replay(mesh=mesh)
+    cap = slice_run("mesh", "entry widths on the mesh", s, data,
+                    ENTRY_ATE_GATE)
+    check(s.graphs.captures > 0 and s.graphs.replays > 0, "mesh: no "
+          "captured step was replayed")
+    eag = entry_sequencer(mesh=mesh, eager=True)
+    replay_timed(eag, data, range(MESH_EAGER_SCANS))
+    pe = positions(eag)
+    gap_eager = float(np.abs(cap["traj"][:len(pe)] - pe).max())
+    check(gap_eager < CAPTURE_GAP, f"mesh: captured and eager positions "
+          f"differ by {gap_eager:.4f} m")
+    check(cap["traj"].shape == single["traj"].shape, "mesh: trajectory "
+          "lengths differ from the single device's")
+    gap = float(np.abs(cap["traj"] - single["traj"]).max())
+    check(gap < MESH_GAP, f"mesh: positions differ from the single "
+          f"device's by {gap:.4f} m")
+    print(f"[mesh] (a) entry widths, world size 1: captured against eager "
+          f"(first {MESH_EAGER_SCANS} scans) {gap_eager:.2e} m (gate "
+          f"{CAPTURE_GAP}); against the single-device captured run "
+          f"{gap:.2e} m (gate {MESH_GAP}: the mesh matches afresh every GN "
+          f"iteration); ATE {cap['ate']:.5f} vs {single['ate']:.5f} m; ms a "
+          f"scan (synchronized) median {cap['med']:.2f} vs "
+          f"{single['med']:.2f}, p90 {cap['p90']:.2f} vs "
+          f"{single['p90']:.2f}; device ms a scan {cap['busy']:.3f} vs "
+          f"{single['busy']:.3f}, device ops a scan {cap['n_dev']:.0f} vs "
+          f"{single['n_dev']:.0f} (the sharding tax: "
+          f"{cap['busy'] - single['busy']:+.3f} ms, "
+          f"{cap['n_dev'] - single['n_dev']:+.0f} ops); NCCL kernels the "
+          f"profiler saw a scan {cap['nccl']:.1f} (3 all-reduces a "
+          f"linearization, in-place at world size 1)", flush=True)
+    return cap
+
+
+def mesh_kicked(mesh, kernel_us):
+    """(c) the rescue phase's kicked stream on the mesh, captured (over
+    scans KICK_AT-2..KICK_AT+1 the ICP launches counted against the code's:
+    n_gn_iters + 1 a scan, and 14 x 3 + n_gn_iters more on a rescued one)
+    and eager over its first MESH_KICK_EAGER scans. The profiler's records
+    named for the ICP kernel over the stretch are printed, not gated: inside
+    a conditional node's body the profiler names some ~1.2 us kernels as
+    the ICP kernel, whose launch takes ``kernel_us`` (3.), so those records
+    are also counted apart by their length. Returns the captured run's ICP
+    launches."""
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    data = rescue_data()
+    stretch = tuple(range(KICK_AT - 2, KICK_AT + 2))
+    s = entry_sequencer(seq_kw=RESCUE_KW, mesh=mesh)
+    icp_cuda.reset_launches()
+    ms, prof, counted = scan_ranges(s, data, KICK_AT, stretch)
+    launches = icp_cuda.launches()
+    flags = s.debug_records()[:, 16]
+    check(flags[KICK_AT - 1] == 1, f"mesh rescue: the kicked scan "
+          f"{KICK_AT} was not rescued: "
+          f"{(np.nonzero(flags)[0] + 1).tolist()}")
+    ate = tail_ate(s, data, KICK_AT)
+    check(ate < RESCUE_TAIL_GATE, f"mesh rescue: tail ATE {ate:.4f} m >= "
+          f"{RESCUE_TAIL_GATE}")
+    eag = entry_sequencer(seq_kw=RESCUE_KW, mesh=mesh, eager=True)
+    scan_ranges(eag, dict(data, scans=data["scans"][:MESH_KICK_EAGER]),
+                KICK_AT)
+    fe = eag.debug_records()[:, 16]
+    check(np.array_equal(flags[:len(fe)], fe), "mesh rescue: captured and "
+          "eager rescued other scans")
+    pe = positions(eag)
+    gap = float(np.abs(positions(s)[:len(pe)] - pe).max())
+    check(gap < CAPTURE_GAP, f"mesh rescue: captured and eager positions "
+          f"differ by {gap:.4f} m")
+    events = prof.events()
+    named = [e.time_range.elapsed_us() for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "icp_linearize_kernel" in e.name]
+    ran = len(named)
+    long = sum(1 for us in named if us >= kernel_us / 2)
+    n1, body = s.cfg.n_gn_iters + 1, 14 * 3 + s.cfg.n_gn_iters
+    rescued = [k for k in stretch if flags[k - 1] > 0]
+    want = n1 * len(stretch) + body * len(rescued)
+    check(counted == want, f"mesh rescue: the count says {counted} ICP "
+          f"launches over scans {stretch[0]}-{stretch[-1]}, the code {want}")
+    dev = busy_by_range(events, [f"scan {k}" for k in stretch])
+    print(f"[mesh] (c) the kicked stream on the mesh: rescued scans "
+          f"{(np.nonzero(flags)[0] + 1).tolist()} of {len(flags)} (the "
+          f"window kicked before scan {KICK_AT}), tail ATE {ate:.5f} m "
+          f"(gate {RESCUE_TAIL_GATE}); eager over the first "
+          f"{MESH_KICK_EAGER} scans: the same flags, gap {gap:.2e} m (gate "
+          f"{CAPTURE_GAP}); scans {stretch[0]}-{stretch[-1]}: {counted} ICP "
+          f"launches counted (= {n1} a scan + {body} on each rescued one, "
+          f"the candidates one after another); the profiler's records named "
+          f"for the kernel {ran}, {long} of them at least half the "
+          f"kernel's {kernel_us:.2f} us; device ms / ops a scan: "
+          + ", ".join(
+              f"scan {k}{' (rescued)' if k in rescued else ''} "
+              f"{dev[f'scan {k}'][0]:.3f} / {dev[f'scan {k}'][1]}"
+              for k in stretch)
+          + f"; ICP launches in the run {launches}", flush=True)
+    return launches
+
+
+def mesh_shared_cache():
+    """(d) room_clean and room_noisy (the scoreboard's 12 s rows at
+    ``synthetic_replay.run``'s settings), each through a Sequencer of its
+    own, then both through one step cache, their scans fed in turns: the
+    same bits, and the graphs captured without the cache and with it."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io.synthetic_replay import feed
+
+    datas = [syn.generate(syn.room_world(), syn.TrajectoryConfig(
+        t_total=12.0), syn.LidarModel(), seed=0, **kw)
+        for _, kw in SHARED_ROWS]
+    alone = [rematch_sequencer(False) for _ in datas]
+    for s, d in zip(alone, datas):
+        replay_timed(s, d, range(len(d["scans"])))
+    cache = {}
+    shared = [rematch_sequencer(False, step_cache=cache) for _ in datas]
+    check(shared[0].graphs is shared[1].graphs, "the shared cache gave "
+          "each Sequencer graphs of its own")
+    imu = [0] * len(datas)
+    t0 = time.perf_counter()
+    for k in range(max(len(d["scans"]) for d in datas)):
+        for j, (s, d) in enumerate(zip(shared, datas)):
+            if k < len(d["scans"]):
+                imu[j] = feed(s, d, k, imu[j])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for (name, _), s, a in zip(SHARED_ROWS, shared, alone):
+        check(s.counters == a.counters, f"shared cache, {name}: counters "
+              f"differ")
+        for i, (x, y) in enumerate(zip(s.trajectory, a.trajectory)):
+            check(x[0] == y[0] and np.array_equal(x[1], y[1])
+                  and np.array_equal(x[2], y[2]), f"shared cache, {name}: "
+                  f"state {i} differs from the unshared run's")
+    alone_caps = sum(s.graphs.captures for s in alone)
+    caps = shared[0].graphs.captures
+    check(caps < alone_caps, f"shared cache: {caps} captures against "
+          f"{alone_caps} without")
+    print(f"[mesh] (d) step_cache: {' and '.join(n for n, _ in SHARED_ROWS)}"
+          f" fed scan by scan in turns through one cache give the bits of "
+          f"the unshared runs ({sum(len(d['scans']) for d in datas)} scans, "
+          f"{secs:.2f} s interleaved, one state hand-over a step); graphs "
+          f"captured {alone_caps} without the cache, {caps} with it",
+          flush=True)
+    return dict(alone=alone_caps, shared=caps)
+
+
+def mesh_phase(single, kernel_us):
+    """Sequencer(mesh=...) on a world of one NCCL rank: (a) entry widths
+    against eager and the single device, (b) the four-modality stream,
+    (c) the kicked stream (the rescue on the mesh), (d) the step cache.
+    Returns (a)'s ICP launches and the profiler's ICP kernels."""
+    clock = [time.perf_counter()]
+    with nccl_world() as mesh:
+        cap = mesh_entry(mesh, single)
+        clock.append(time.perf_counter())
+        data, events = mm_stream()
+        mm = mm_run(False, data, events, mesh=mesh, tag="mesh")
+        print(f"[mesh] (b) the four-modality stream on the mesh, captured: "
+              f"ATE {mm['ate']:.5f} m (gate {ENTRY_ATE_GATE}), late paths "
+              f"{ {k: mm['counters'].get(k) for k in MM_COUNTERS} }, radar "
+              f"through the dp-split linearization", flush=True)
+        clock.append(time.perf_counter())
+        mesh_kicked(mesh, kernel_us)
+        clock.append(time.perf_counter())
+    mesh_shared_cache()
+    clock.append(time.perf_counter())
+    print("[mesh] seconds by part: " + ", ".join(
+        f"({p}) {b - a:.1f}" for p, a, b in zip("abcd", clock, clock[1:])),
+        flush=True)
+    return cap["launches"], cap["ran"]
+
+
 def cond_kernel_phase(dev):
     """The conditional node's predicate kernel (``ops/cond_cuda.py``)
     against its plain version, the host read of the predicate: a graph
@@ -2695,10 +2925,14 @@ def main():
     if "--chunk-graph" in sys.argv[1:]:
         chunk_graph_phase()
         return 0
+    if "--mesh" in sys.argv[1:]:
+        mesh_phase(entry_run(eager=False), 1e3 * kernel_phase(dev)[8192][
+            "device_ms"])
+        return 0
     timings = kernel_phase(dev)
     cond_timing = cond_kernel_phase(dev)
     clock = [("start", time.perf_counter())]
-    launches, ran = slice_phase()
+    launches, ran, slice_cap = slice_phase()
     clock.append(("slice", time.perf_counter()))
     photo_launches, photo_ran = photo_phase()
     clock.append(("photo", time.perf_counter()))
@@ -2717,6 +2951,9 @@ def main():
     clock.append(("refine", time.perf_counter()))
     rescue = rescue_phase()
     clock.append(("rescue", time.perf_counter()))
+    mesh_launches, mesh_ran = mesh_phase(slice_cap,
+                                         1e3 * timings[8192]["device_ms"])
+    clock.append(("mesh", time.perf_counter()))
     print("[clock] seconds by phase: " + ", ".join(
         f"{n} {t - t_prev:.1f}" for (_, t_prev), (n, t)
         in zip(clock, clock[1:])), flush=True)
@@ -2743,7 +2980,8 @@ def main():
                launches_refine=refine_launches,
                profiled_runs_refine=refine_ran,
                launches_rescue=rescue["launches"],
-               profiled_runs_rescue=rescue["ran"])
+               profiled_runs_rescue=rescue["ran"],
+               launches_mesh=mesh_launches, profiled_runs_mesh=mesh_ran)
     cond_rec = dict(name="cond_predicate", route="cuda",
                     source="mimosa_tpu_torch/csrc/graph_cond.cu",
                     replaces="mimosa_tpu/graph/sequencer.py:2348",

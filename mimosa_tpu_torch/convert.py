@@ -23,6 +23,12 @@ between factor.
 ``load_sequencer_state`` starts a port Sequencer from such a state and
 ``sequencer_state`` reads one back, so a test can run both packages from
 the same window and map and compare them field by field.
+
+A mesh-sharded map (``parallel/sharded.py``) travels the same way: the
+JAX package stacks its mp sub-tables as ``[n_mp, C+1, ...]``, a rank of
+the port holds one. ``sharded_map_from_numpy`` takes a rank's sub-table
+out of such a stack, and ``gather_sharded_map`` gathers the ranks' tables
+back into one.
 """
 
 from __future__ import annotations
@@ -77,6 +83,28 @@ def tuple_from_numpy(cls, arrs, device=None, dtype=torch.float32):
         raise KeyError(f"{cls.__name__} fields missing: {sorted(missing)}")
     return cls(**{k: from_numpy(arrs[k], device, dtype)
                   for k in cls._fields})
+
+
+def sharded_map_from_numpy(stacked: dict, mp_index, device=None,
+                           dtype=torch.float32) -> VoxelMap:
+    """Row ``mp_index`` of a stacked map (a dict of ``[n_mp, C+1, ...]``
+    arrays by field, the JAX package's ``create_sharded_map`` layout): the
+    sub-table of a rank at that mp index."""
+    return tuple_from_numpy(VoxelMap, {k: np.asarray(v)[mp_index]
+                                       for k, v in stacked.items()},
+                            device, dtype)
+
+
+def gather_sharded_map(vmap: VoxelMap, mesh) -> dict:
+    """The mp sub-tables of a mesh gathered into the stacked layout
+    (numpy, by field, ``[n_mp, C+1, ...]`` in mp order), on every rank
+    (``all_gather_object`` over the mesh's mp group)."""
+    import torch.distributed as dist
+
+    g = mesh.get_group("mp")
+    tables = [None] * dist.get_world_size(g)
+    dist.all_gather_object(tables, to_numpy(vmap), group=g)
+    return {k: np.stack([t[k] for t in tables]) for k in VoxelMap._fields}
 
 
 def sensor_host(seq) -> dict:

@@ -29,6 +29,17 @@ node's outputs are buffers made before it, which the body overwrites; an
 eager warm-up runs the body whatever the predicate, so its library handles
 and workspaces exist before the capture.
 
+A Sequencer on a mesh (``parallel/sharded.py``) makes ``torch.distributed``
+collectives inside its steps; under capture they are recorded into the
+graph (and into a conditional node's body) like any other work on the
+stream. A process group makes its communicator at its first collective,
+which a capture does not allow: the variant's eager warm-up makes it.
+
+One CapturedSteps may serve several Sequencers of one configuration
+(``Sequencer(step_cache=)``). The static buffers then hold the state of
+the Sequencer that ran last (``owner``); before another one's step, the
+last one copies its state out of them (its ``_own_state``).
+
 ``ops.icp_cuda.LAUNCHES`` counts the ICP kernel's launches: a capture
 records the kernel without running it, so the count a graph recorded is
 taken back after the capture and added again at each replay. Launches
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import gc
 import threading
+import weakref
 
 import torch
 import torch.utils._pytree as pytree
@@ -155,6 +167,7 @@ class CapturedSteps:
         self._bufs = None       # the static state buffers
         self._spec = None
         self._inputs = {}       # variant -> static input buffers
+        self._owner = None      # weak reference to the last step's owner
 
     def _adopt(self, state):
         """The static state buffers, holding the values of ``state``."""
@@ -185,10 +198,21 @@ class CapturedSteps:
                     b.copy_(x, non_blocking=True)
         return bufs
 
-    def run(self, key, fn, state, inputs=()):
+    def _hand_over(self, owner):
+        """Make ``owner`` the holder of the static buffers: the last owner,
+        if another and still alive, first copies its state out of them."""
+        last = self._owner() if self._owner is not None else None
+        if last is not None and last is not owner and self._bufs is not None:
+            last._own_state(self._bufs)
+        self._owner = None if owner is None else weakref.ref(owner)
+
+    def run(self, key, fn, state, inputs=(), owner=None):
         """One step of variant ``key``: ``fn(state, *inputs)`` returns the
         new state (same structure, shapes and types). Returns the static
-        state buffers, which hold the new state once the stream has run."""
+        state buffers, which hold the new state once the stream has run.
+        ``owner`` (an object with ``_own_state(bufs)``, the Sequencer whose
+        state this is) lets several share this object."""
+        self._hand_over(owner)
         bufs = self._adopt(state)
         ins = self._static_inputs(key, inputs)
         if key not in self.warm:

@@ -63,6 +63,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import functools
+import itertools
 import logging
 import typing
 
@@ -72,7 +73,8 @@ import torch
 from mimosa_tpu_torch import native, require_cuda
 from mimosa_tpu_torch.core import lie
 from mimosa_tpu_torch.graph import window as win
-from mimosa_tpu_torch.graph.captured import CapturedSteps, cond
+from mimosa_tpu_torch.graph.captured import CapturedSteps, cond, flatten, \
+    unflatten
 from mimosa_tpu_torch.imu import preintegration as pre
 from mimosa_tpu_torch.imu.buffer import ImuBuffer, estimate_attitude
 from mimosa_tpu_torch.lidar import deskew as dk
@@ -82,6 +84,7 @@ from mimosa_tpu_torch.lidar.downsample import voxel_downsample
 from mimosa_tpu_torch.mapping import voxel_hash as vh
 from mimosa_tpu_torch.odometry import factor as odo
 from mimosa_tpu_torch.ops import icp_cuda
+from mimosa_tpu_torch.parallel import sharded
 from mimosa_tpu_torch.radar import factor as rad
 from mimosa_tpu_torch.utils.timing import StageTimer
 
@@ -102,6 +105,9 @@ PH_SUM_SLOTS = (1, 3, 4, 5)
 STATE = ("window", "vmap", "preints", "fv", "kf_q", "kf_p", "kf_count",
          "traj_q", "traj_p", "debug_rec")
 PHOTO_STATE = STATE + ("features",)
+# a Sequencer's own step-cache salt where its steps are not shared (a mesh,
+# an unhashable configuration): a number never given twice in a process
+_INSTANCES = itertools.count()
 
 
 class EstimatorState(typing.NamedTuple):
@@ -260,9 +266,11 @@ def _map_update_at(vmap, pts_w, valid, scan_idx, *, map_cfg):
 
 def _keyframe_map_update(vmap, q_new, p_new, points_le, pt_valid,
                          kf_q, kf_p, kf_count, scan_idx, q_bl, t_bl,
-                         *, seq_cfg, map_cfg):
+                         *, seq_cfg, map_cfg, map_update_fn=None):
     """Keyframe decision + gated map insert + keyframe ring update, all on
-    the device (a non-keyframe inserts with every lane masked)."""
+    the device (a non-keyframe inserts with every lane masked).
+    ``map_update_fn(vmap, pts, valid, scan_idx)`` replaces the insert
+    (:func:`_map_update_at`) on a mesh."""
     KF = seq_cfg.max_keyframes
     kf_mask = torch.arange(KF, device=kf_count.device) < kf_count
     dmin = torch.min(torch.where(
@@ -279,8 +287,11 @@ def _keyframe_map_update(vmap, q_new, p_new, points_le, pt_valid,
     pts_w = lie.se3_transform(q_wl, t_wl, points_le)
     map_pts, map_valid, _ = voxel_downsample(
         pts_w, pt_valid, seq_cfg.map_insert_leaf, seq_cfg.n_map_points)
-    vmap = _map_update_at(vmap, map_pts, map_valid & is_kf, scan_idx,
-                          map_cfg=map_cfg)
+    if map_update_fn is None:
+        vmap = _map_update_at(vmap, map_pts, map_valid & is_kf, scan_idx,
+                              map_cfg=map_cfg)
+    else:
+        vmap = map_update_fn(vmap, map_pts, map_valid & is_kf, scan_idx)
 
     kf_slot = torch.where(is_kf, kf_count, KF - 1).to(torch.int64)
     kf_q = _put_row(kf_q, kf_slot, torch.where(is_kf, q_new,
@@ -441,6 +452,37 @@ def _rescue_search(vmap, pts_geo, geo_valid, g_dir, q_conv, p_conv, q_pre,
     return _row(qs, best), _row(ts, best)
 
 
+def _rescue_search_mesh(linearize_fn, vmap, pts_geo, geo_valid, g_dir,
+                        q_conv, p_conv, q_pre, p_pre, cands, *, geo_cfg):
+    """The rescue's multi-start search on a mesh, in the JAX package's
+    sequential form (``lax.map``, since its mesh linearization does not
+    batch): each of the 14 poses of :func:`_rescue_search` (the converged
+    one, then the 13 candidates) refined by 2 damped pose-only GN steps and
+    scored through ``linearize_fn``, which matches afresh on every call
+    (3 calls a pose). Returns the first best pose (q, t)."""
+    q_c = lie.quat_normalize(lie.quat_mul(
+        lie.exp_so3(-g_dir * cands[:, 3:4]), q_pre))   # yaw about up
+    qs = torch.cat([q_conv[None], q_c])
+    ts = torch.cat([p_conv[None], p_pre + cands[:, :3]])
+    eye = torch.eye(6, dtype=qs.dtype, device=qs.device)
+    scores, q_f, t_f = [], [], []
+    for q, t in zip(qs, ts):
+        for _ in range(2):
+            res = linearize_fn(vmap, pts_geo, geo_valid, q, t, g_dir)
+            lam = 1e-3 * torch.trace(res.H) / 6.0 + 1e-6
+            dx = torch.linalg.solve_ex(res.H + lam * eye, -res.b,
+                                       check_errors=False)[0]
+            dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+            q, t = lie.se3_retract(q, t, dx)
+        res = linearize_fn(vmap, pts_geo, geo_valid, q, t, g_dir)
+        scores.append(res.num_inlier.to(q.dtype)
+                      - res.mean_abs_res / geo_cfg.sigma)
+        q_f.append(q)
+        t_f.append(t)
+    best = torch.argmax(torch.stack(scores))
+    return _row(torch.stack(q_f), best), _row(torch.stack(t_f), best)
+
+
 def _rescue_realign(window, slot, q_b, t_b, p_pre):
     """Translate every active state, values and linearization points, by
     the winner's offset from the predicted position, and set the slot to
@@ -459,7 +501,8 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
                kf_q, kf_p, kf_count, traj_q, traj_p, debug_rec, q_bl, t_bl,
                ray_dirs=None, dither=None, static_mask=None, features=None,
                *, seq_cfg, win_cfg, map_cfg, geo_cfg, photo_cfg=None,
-               marginalize_first=False, append=True):
+               marginalize_first=False, append=True, linearize_fn=None,
+               map_update_fn=None):
     """The per-scan pipeline. ``imu_f`` [M+1, 8]: M IMU rows (acc3, gyro3,
     dt, valid) and a last row of scalars [n_active (count BEFORE the
     append), t_end_rel, traj_idx, scan_idx, t_offset, attach_slot].
@@ -486,7 +529,15 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     geometric points, the candidate search (:func:`_rescue_search`), the
     window's realignment to the winner and ``n_gn_iters`` geometric-only
     window GN iterations; the absorb then uses the winner's matches, and
-    debug slot 16 is 1."""
+    debug slot 16 is 1.
+
+    On a mesh (``parallel/sharded.py``) ``linearize_fn(vmap, pts, valid, q,
+    t, g_dir)`` and ``map_update_fn(vmap, pts, valid, scan_idx)`` replace
+    the linearization and the map insert, as in the JAX package: the mesh
+    matches afresh on every linearization (each GN iteration, the absorb
+    and each call of the rescue, whose candidates then run one after
+    another, :func:`_rescue_search_mesh`), and ``rematch_on_motion`` has
+    no effect."""
     d = window.p.dtype
     scalars = imu_f[-1]
     imu_f = imu_f[:-1]
@@ -577,14 +628,23 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     # points that moved past leaf/4 after each update); the IMU Jacobians
     # are made once. lin_iter reads the newest matches.
     q_pre, p_pre = pose()
-    matches = geo.match(vmap, pts_geo, q_pre, p_pre, map_cfg)
-    if seq_cfg.rematch_on_motion:
+    mesh = linearize_fn is not None
+    rematch = seq_cfg.rematch_on_motion and not mesh
+    if mesh:
+        matches = ()
+
+        def lin_iter():
+            return linearize_fn(vmap, pts_geo, geo_valid, *pose(),
+                                window.g_dir)
+    else:
+        matches = geo.match(vmap, pts_geo, q_pre, p_pre, map_cfg)
+
+        def lin_iter():
+            return icp_cuda.linearize(matches, pts_geo, geo_valid, *pose(),
+                                      geo_cfg, g_dir=window.g_dir)
+    if rematch:
         # each point's world position at its last association
         p_da = _world_points(pts_geo, q_pre, p_pre)
-
-    def lin_iter():
-        return icp_cuda.linearize(matches, pts_geo, geo_valid, *pose(),
-                                  geo_cfg, g_dir=window.g_dir)
 
     imu_cache = win.imu_factor_cache(window, preints, win_cfg)
     pidx = win.pose_idx(slot)
@@ -597,7 +657,7 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
         H, rhs = win.build_system(window, preints, fv, win_cfg, meas=meas,
                                   imu_cache=imu_cache)
         window = win.apply_update(window, win.solve(H, rhs), win_cfg)
-        if seq_cfg.rematch_on_motion:
+        if rematch:
             matches, p_da = _rematch(vmap, pts_geo, geo_valid, matches, p_da,
                                      *pose(), map_cfg)
 
@@ -615,18 +675,26 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
             d, pts_geo.device)
 
         def rescue():
+            search = (functools.partial(_rescue_search_mesh, linearize_fn)
+                      if mesh else functools.partial(_rescue_search,
+                                                     map_cfg=map_cfg))
             w2 = _rescue_realign(
-                window, slot, *_rescue_search(
+                window, slot, *search(
                     vmap, pts_geo, geo_valid, window.g_dir, *pose(), q_pre,
-                    p_pre, cands, map_cfg=map_cfg, geo_cfg=geo_cfg),
+                    p_pre, cands, geo_cfg=geo_cfg),
                 p_pre)
-            m2 = geo.match(vmap, pts_geo, _row(w2.q, slot),
-                           _row(w2.p, slot), map_cfg)
+            m2 = () if mesh else geo.match(vmap, pts_geo, _row(w2.q, slot),
+                                           _row(w2.p, slot), map_cfg)
             # the window GN from the winner's basin, geometric block only
             for _ in range(seq_cfg.n_gn_iters):
-                icp2 = icp_cuda.linearize(m2, pts_geo, geo_valid,
-                                          _row(w2.q, slot), _row(w2.p, slot),
-                                          geo_cfg, g_dir=w2.g_dir)
+                if mesh:
+                    icp2 = linearize_fn(vmap, pts_geo, geo_valid,
+                                        _row(w2.q, slot), _row(w2.p, slot),
+                                        w2.g_dir)
+                else:
+                    icp2 = icp_cuda.linearize(
+                        m2, pts_geo, geo_valid, _row(w2.q, slot),
+                        _row(w2.p, slot), geo_cfg, g_dir=w2.g_dir)
                 H2, rhs2 = win.build_system(
                     w2, preints, fv, win_cfg, meas=[(pidx, *geo_meas(icp2))],
                     imu_cache=imu_cache)
@@ -641,7 +709,7 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
         window = window._replace(**dict(zip(_RESCUE_FIELDS, moved)))
 
     # 6) absorb the final scan factor into the prior at converged values
-    if seq_cfg.refresh_match_on_absorb:
+    if seq_cfg.refresh_match_on_absorb and not mesh:
         matches = geo.match(vmap, pts_geo, *pose(), map_cfg)
     icp = lin_iter()
     window = win.rebase_prior(window, win_cfg)
@@ -674,7 +742,8 @@ def _scan_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     if not seq_cfg.freeze_map:
         vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
             vmap, q_new, p_new, dsk.points_le, geo_in, kf_q, kf_p, kf_count,
-            scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
+            scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg,
+            map_update_fn=map_update_fn)
     traj_q = _put_row(traj_q, traj_idx, q_new)
     traj_p = _put_row(traj_p, traj_idx, p_new)
 
@@ -712,9 +781,11 @@ def _init_inertial_step(window, traj_q, traj_p, q0, g0, bg, ba, ts,
 
 def _init_lidar_step(window, vmap, traj_q, traj_p, kf_q, kf_p, pts, vd,
                      q0, g0, bg, ba, ts, q_bl, t_bl,
-                     *, seq_cfg, win_cfg, map_cfg):
+                     *, seq_cfg, win_cfg, map_cfg, map_update_fn=None):
     """State setup (:func:`_init_inertial_step`) + keyframe 0 + stationary
-    first-scan map seed (not with ``freeze_map``: the map stays as given)."""
+    first-scan map seed (not with ``freeze_map``: the map stays as given);
+    on a mesh ``map_update_fn`` makes the seed's insert, as in the JAX
+    package."""
     window, traj_q, traj_p = _init_inertial_step(
         window, traj_q, traj_p, q0, g0, bg, ba, ts, win_cfg=win_cfg)
     z3 = torch.zeros_like(bg)
@@ -725,8 +796,11 @@ def _init_lidar_step(window, vmap, traj_q, traj_p, kf_q, kf_p, pts, vd,
         ds, ds_valid, _ = voxel_downsample(
             lie.se3_transform(q_wl, t_wl, pts), vd, seq_cfg.map_insert_leaf,
             seq_cfg.n_map_points)
-        vmap = _map_update(vmap, ds, ds_valid, zero.to(torch.int32),
-                           map_cfg=map_cfg)
+        if map_update_fn is None:
+            vmap = _map_update(vmap, ds, ds_valid, zero.to(torch.int32),
+                               map_cfg=map_cfg)
+        else:
+            vmap = map_update_fn(vmap, ds, ds_valid, zero.to(torch.int32))
     return window, vmap, traj_q, traj_p, kf_q, kf_p
 
 
@@ -866,7 +940,8 @@ def _gn_absorb(window, preints, fv, idx, lin, *, win_cfg):
 # scalar row [slot, omega (3), traj_idx]
 
 
-def _radar_step(state, *inputs, mode, seq_cfg, win_cfg, radar_cfg):
+def _radar_step(state, *inputs, mode, seq_cfg, win_cfg, radar_cfg,
+                linearize_fn=None):
     """The radar Doppler factor on the whole state. ``inputs`` end with the
     radar pack; its scalar row's slot is the state the factor acts on, and
     ``mode`` says how that state came to be:
@@ -882,7 +957,9 @@ def _radar_step(state, *inputs, mode, seq_cfg, win_cfg, radar_cfg):
       a late frame (:func:`_insert_ooo_state`), no row.
 
     The omega of the lever arm is the mean gyro over the frame's exposure;
-    the GN is :func:`_gn_absorb` on the [dR, dv, dbg] keys."""
+    the GN is :func:`_gn_absorb` on the [dR, dv, dbg] keys. On a mesh
+    ``linearize_fn(q, v, bg, omega, dirs, doppler, valid)`` (the targets
+    split over dp, ``parallel/sharded.py``) replaces ``rad.linearize``."""
     window, vmap, preints, fv, kf_q, kf_p, kf_count, traj_q, traj_p, \
         *rest = state
     *imu, rpack = inputs
@@ -899,9 +976,10 @@ def _radar_step(state, *inputs, mode, seq_cfg, win_cfg, radar_cfg):
     omega, doppler = scal[1:4], tgt[:, 3]
 
     def lin(w):
-        res = rad.linearize(_row(w.q, slot), _row(w.v, slot),
-                            _row(w.bg, slot), omega, dirs, doppler, valid,
-                            radar_cfg)
+        args = (_row(w.q, slot), _row(w.v, slot), _row(w.bg, slot), omega,
+                dirs, doppler, valid)
+        res = rad.linearize(*args, radar_cfg) if linearize_fn is None \
+            else linearize_fn(*args)
         return res.H, res.b
 
     window = _gn_absorb(window, preints, fv, win.rot_vel_bg_idx(slot), lin,
@@ -949,7 +1027,8 @@ def _odom_step(state, *inputs, declare, seq_cfg, win_cfg, odom_cfg):
 def _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
                    kf_q, kf_p, kf_count, debug_rec, q_bl, t_bl,
                    ray_dirs=None, dither=None,
-                   *, seq_cfg, win_cfg, map_cfg, geo_cfg):
+                   *, seq_cfg, win_cfg, map_cfg, geo_cfg, linearize_fn=None,
+                   map_update_fn=None):
     """A late scan's state inserted mid-window and defined by the scan:
     insert at ``pos`` with the two IMU segments re-integrated
     (:func:`_insert_ooo_state`), deskew over segment A from the previous
@@ -960,7 +1039,9 @@ def _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     (the scan is older than the trajectory head) and no photometric
     factor, as in the JAX package; the debug row holds the inlier count
     only. Points timestamped before the previous state clamp to its pose
-    in the deskew."""
+    in the deskew. On a mesh ``linearize_fn`` (which matches afresh on
+    every call) and ``map_update_fn`` replace the linearization and the
+    map insert, as in :func:`_scan_step`."""
     d = window.p.dtype
     m = seq_cfg.max_imu_per_segment
     scalars = imu_f[-1]
@@ -999,11 +1080,16 @@ def _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
         Pp = geo.degeneracy_projector(icp_)
         return Pp @ icp_.H @ Pp.T, Pp @ icp_.b
 
-    matches = geo.match(vmap, pts_geo, *pose(), map_cfg)
+    if linearize_fn is None:
+        matches = geo.match(vmap, pts_geo, *pose(), map_cfg)
 
-    def lin_iter():
-        return icp_cuda.linearize(matches, pts_geo, geo_valid, *pose(),
-                                  geo_cfg, g_dir=window.g_dir)
+        def lin_iter():
+            return icp_cuda.linearize(matches, pts_geo, geo_valid, *pose(),
+                                      geo_cfg, g_dir=window.g_dir)
+    else:
+        def lin_iter():
+            return linearize_fn(vmap, pts_geo, geo_valid, *pose(),
+                                window.g_dir)
 
     imu_cache = win.imu_factor_cache(window, preints, win_cfg)
     pidx = win.pose_idx(pos)
@@ -1021,7 +1107,8 @@ def _scan_ooo_step(window, vmap, preints, fv, scan_f, pt_valid, imu_f,
     if not seq_cfg.freeze_map:
         vmap, kf_q, kf_p, kf_count = _keyframe_map_update(
             vmap, *pose(), dsk.points_le, geo_in, kf_q, kf_p, kf_count,
-            scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg)
+            scan_idx, q_bl, t_bl, seq_cfg=seq_cfg, map_cfg=map_cfg,
+            map_update_fn=map_update_fn)
     rec = torch.cat([icp.num_inlier.to(d).reshape(1),
                      torch.zeros(DBG_W - 1, dtype=d, device=pts.device)])
     debug_rec = _put_row(debug_rec, scan_idx.to(torch.int64), rec)
@@ -1067,7 +1154,27 @@ class Sequencer:
     empty one: localization against a prior map with ``freeze_map``, or
     pass 2 of the two-pass refinement. Its tensors are copied: the
     captured steps write the map's buffers in place, so no Sequencer shares
-    another's."""
+    another's.
+
+    ``mesh`` (a ``("dp", "mp")`` DeviceMesh, ``parallel.sharded.make_mesh``)
+    runs the same host logic over the mesh's device programs, every rank
+    of the process group replaying identical inputs: points and radar
+    targets split over dp, the map over mp (``vmap`` is this rank's
+    sub-table), the linearization and the map insert of every scan step
+    variant, the initialization and the radar steps from
+    ``parallel/sharded.py``, their collectives recorded into the captured
+    graphs.
+
+    ``step_cache`` is a dict to share among Sequencers of identical
+    configurations (repeated replays, a scoreboard): the step functions and,
+    on the card, the captured graphs with their static buffers, so a
+    Sequencer replays the graphs an earlier one captured. Its keys carry
+    the configurations, the device and the dtype; a mesh Sequencer, or one
+    whose configuration does not hash, keeps keys of its own. After a
+    replay a Sequencer's state tensors are the shared static buffers, so
+    before another Sequencer runs a step through them, the last one's state
+    is copied out into tensors of its own (``CapturedSteps.run``'s
+    ``owner``): interleaved Sequencers give the bits of separate ones."""
 
     def __init__(self, seq_cfg: SequencerConfig = SequencerConfig(),
                  win_cfg: win.WindowConfig = win.WindowConfig(),
@@ -1075,7 +1182,7 @@ class Sequencer:
                  geo_cfg: geo.GeometricConfig = geo.GeometricConfig(),
                  photo_cfg: ph.PhotometricConfig = None,
                  *, device=None, dtype=torch.float32, ray_dirs=None,
-                 eager=False, init_map=None):
+                 eager=False, init_map=None, mesh=None, step_cache=None):
         if photo_cfg is not None and photo_cfg.exact_ouster \
                 and seq_cfg.point_skip != 1:
             raise ValueError(
@@ -1093,6 +1200,11 @@ class Sequencer:
         self.dtype = dtype
         f = dict(dtype=dtype, device=self.device)
         self._init_codec(ray_dirs)
+        self.mesh = mesh
+        self._linearize_fn = self._map_update_fn = None
+        if mesh is not None:
+            self._linearize_fn, self._map_update_fn = sharded.sequencer_fns(
+                mesh, map_cfg, geo_cfg)
         self._state_names = STATE if photo_cfg is None else PHOTO_STATE
         self.features = self._static_mask = None
         if photo_cfg is not None:
@@ -1107,8 +1219,13 @@ class Sequencer:
         self.imu = ImuBuffer(max_duration=seq_cfg.imu_max_buffer_duration,
                              acc_scale=seq_cfg.imu_acc_scale)
         self.window = win.create(win_cfg, self.device, dtype)
-        self.vmap = vh.create(map_cfg, self.device, dtype) \
-            if init_map is None else self._copy_map(init_map)
+        if init_map is not None:
+            self.vmap = self._copy_map(init_map)
+        elif mesh is not None:
+            self.vmap = sharded.create_sharded_map(map_cfg, mesh,
+                                                   self.device, dtype)
+        else:
+            self.vmap = vh.create(map_cfg, self.device, dtype)
         K = win_cfg.K
         z3 = torch.zeros(3, **f)
         self.preints = pre.PreintState(*[
@@ -1146,9 +1263,38 @@ class Sequencer:
                                 codes=[0] * 5)
         self._step_kw = dict(seq_cfg=seq_cfg, win_cfg=win_cfg,
                              map_cfg=map_cfg, geo_cfg=geo_cfg)
-        self._steps = {}             # step variant -> its function
-        self.graphs = None if eager or self.device.type != "cuda" \
-            else CapturedSteps(self.device)
+        if mesh is not None:
+            self._step_kw.update(linearize_fn=self._linearize_fn,
+                                 map_update_fn=self._map_update_fn)
+        # the step functions and the captured graphs, keyed by _ckey
+        self._step_cache = {} if step_cache is None else step_cache
+        self._cfg_salt = self._salt()
+        self.graphs = None
+        if not eager and self.device.type == "cuda":
+            key = self._ckey("graphs")
+            if key not in self._step_cache:
+                self._step_cache[key] = CapturedSteps(self.device)
+            self.graphs = self._step_cache[key]
+
+    def _salt(self):
+        """The step-cache salt: the configurations, dtype, device and range
+        codec table, or this Sequencer's own number on a mesh (its steps
+        hold the mesh) or where the configuration does not hash."""
+        if self.mesh is None:
+            salt = (self.cfg, self.win_cfg, self.map_cfg, self.geo_cfg,
+                    self.photo_cfg, str(self.dtype), str(self.device),
+                    self._ray_dirs_key)
+            try:
+                hash(salt)
+                return salt
+            except TypeError:
+                pass
+        return ("instance", next(_INSTANCES))
+
+    def _ckey(self, *parts):
+        """The step-cache key of ``parts`` ("step" and a variant's key,
+        which the captured graphs hash too, or "graphs")."""
+        return (self._cfg_salt,) + parts
 
     def _copy_map(self, vmap):
         """A copy of ``vmap`` in new tensors, after checking that it is a
@@ -1170,6 +1316,7 @@ class Sequencer:
         c, n = self.cfg, self.cfg.max_scan_points
         self._ray_dirs_dev = self._dither_dev = self._beam_table = None
         self._ray_dirs_lanes = 0
+        self._ray_dirs_key = None     # the beam table's bytes (step cache)
         if c.range_transfer:
             if ray_dirs is None:
                 raise ValueError(
@@ -1191,6 +1338,7 @@ class Sequencer:
             # computes |p|
             self._beam_table = out if rd.shape[1] == 6 else None
             self._ray_dirs_dev = torch.from_numpy(out).to(self.device)
+            self._ray_dirs_key = out.tobytes()
         if c.quantize_transfer and c.quant_dither:
             self._dither_dev = _dither_lanes(n, self.dtype, self.device)
 
@@ -1214,14 +1362,25 @@ class Sequencer:
         ("scan_ooo",), ("radar", mode, radar_cfg) or ("odom", declare,
         odom_cfg). Replayed from its CUDA graph on the card, eagerly on the
         CPU or with ``eager=True``."""
-        fn = self._steps.get(key)
+        ckey = self._ckey("step", *key)
+        fn = self._step_cache.get(ckey)
         if fn is None:
-            fn = self._steps[key] = self._step_fn(key)
+            fn = self._step_cache[ckey] = self._step_fn(key)
         if self.graphs is None:
             out = fn(self._state(), *inputs)
         else:
-            out = self.graphs.run(key, fn, self._state(), inputs)
+            out = self.graphs.run(key, fn, self._state(), inputs, owner=self)
         for k, v in zip(self._state_names, out):
+            setattr(self, k, v)
+
+    def _own_state(self, bufs):
+        """Copy every state tensor that is one of ``bufs`` (the static
+        buffers of a shared CapturedSteps, about to hold another
+        Sequencer's state) into a tensor of this Sequencer's own."""
+        held = {id(b) for b in bufs}
+        flat, spec = flatten(self._state())
+        flat = [t.clone() if id(t) in held else t for t in flat]
+        for k, v in zip(self._state_names, unflatten(flat, spec)):
             setattr(self, k, v)
 
     def _step_fn(self, key):
@@ -1237,8 +1396,10 @@ class Sequencer:
         if kind == "declare":
             return functools.partial(_declare_step, seq_cfg=self.cfg)
         if kind == "radar":
-            return functools.partial(_radar_step, mode=key[1],
-                                     radar_cfg=key[2], **cfgs)
+            return functools.partial(
+                _radar_step, mode=key[1], radar_cfg=key[2],
+                linearize_fn=None if self.mesh is None
+                else sharded.radar_linearize_fn(self.mesh, key[2]), **cfgs)
         if kind == "odom":
             return functools.partial(_odom_step, declare=key[1],
                                      odom_cfg=key[2], **cfgs)
@@ -2207,7 +2368,8 @@ class Sequencer:
             self.kf_p, put(pts), put(vd, torch.bool), put(att["q_w_b"]),
             put(att["g_dir"]), put(att["bg"]), put(att["ba"]),
             put(np.asarray(t_end)), self.q_bl, self.t_bl,
-            seq_cfg=self.cfg, win_cfg=self.win_cfg, map_cfg=self.map_cfg)
+            seq_cfg=self.cfg, win_cfg=self.win_cfg, map_cfg=self.map_cfg,
+            map_update_fn=self._map_update_fn)
         self.kf_count = torch.ones((), dtype=torch.int32, device=self.device)
         self.n_active = 1
         self.initialized = True

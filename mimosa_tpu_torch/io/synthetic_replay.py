@@ -261,7 +261,8 @@ def photo_config(lm, project_on_degeneracy=False):
 def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
         range_noise=0.0, world=None, tc=None, range_transfer=False,
         use_4dof=False, project_degenerate=False, use_photometric=False,
-        project_on_degeneracy=False, two_pass=False, smooth=False):
+        project_on_degeneracy=False, two_pass=False, smooth=False,
+        step_cache=None):
     """Replay a synthetic sequence (default: room_clean) on ``device``
     (default: the first CUDA device; raises where there is none).
     ``use_photometric`` adds the photometric factor (PG-LIO) with the JAX
@@ -272,7 +273,11 @@ def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
     copied in as ``init_map``); the result is pass 2's. ``smooth``: smooth
     the whole trajectory in one batch (``graph/refine.smooth``) over the
     sequence's IMU stream, kept as ``sequencer.smoothed = (ts, q, p)``, with
-    its ATE as ``ate_smooth``. ``wall`` and ``n_scans`` are pass 1's."""
+    its ATE as ``ate_smooth``. ``wall`` and ``n_scans`` are pass 1's.
+
+    ``step_cache``: one dict passed to repeated calls (a scoreboard, a test
+    module) shares the step functions and the captured graphs among their
+    Sequencers of one configuration (``Sequencer(step_cache=)``)."""
     device = require_cuda() if device is None else torch.device(device)
     world = world if world is not None else syn.room_world()
     tc = tc if tc is not None else syn.TrajectoryConfig(t_total=t_total)
@@ -296,7 +301,7 @@ def run(device=None, t_total=12.0, verbose=True, seed=0, imu_noise=0.0,
                 project_degenerate=project_degenerate),
             photo_cfg=photo_config(lm, project_on_degeneracy)
             if use_photometric else None,
-            device=device, init_map=init_map,
+            device=device, init_map=init_map, step_cache=step_cache,
             # the range codec's beam table: exact for this generator, whose
             # noise is radial
             ray_dirs=syn.beam_dirs(lm)[0] if range_transfer else None)

@@ -322,9 +322,10 @@ def test_staged_and_unstaged_paths_agree_bitwise(scene, n):
 
 # ------------------------------------------------ the captured scan step
 
-def _room_sequencer(eager, **seq_kw):
+def _room_sequencer(eager, mesh=None, step_cache=None, **seq_kw):
     """The room_clean configuration of ``io.synthetic_replay.run`` (16x256
-    LiDAR, int16 codec), captured or eager."""
+    LiDAR, int16 codec), captured or eager, on ``mesh`` and with
+    ``step_cache`` where given."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
 
@@ -337,7 +338,7 @@ def _room_sequencer(eager, **seq_kw):
         vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=17,
                           plane_min_points=5, lru_horizon=0),
         geo.GeometricConfig(sigma=0.05, loc_count_thresh=50.0),
-        device="cuda", eager=eager)
+        device="cuda", eager=eager, mesh=mesh, step_cache=step_cache)
 
 
 @pytest.fixture(scope="module")
@@ -1218,3 +1219,84 @@ def test_kicked_bulk_equals_merged_streaming_on_the_card(long_room):
     np.testing.assert_array_equal(b.debug_records(), s.debug_records())
     assert b.debug_records()[:, 16].sum() >= 1
     _assert_bulk_bitwise(b, s)
+
+
+# ------------------------------------------------ the mesh and the cache
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(dev):
+    """A world of one NCCL rank on the card (a hash store) and its
+    ("dp", "mp") mesh."""
+    import torch.distributed as dist
+
+    from mimosa_tpu_torch.parallel import sharded
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield sharded.make_mesh(n_mp=1, device_type="cuda")
+    dist.destroy_process_group()
+
+
+def test_mesh_scan_step_captured_equals_eager(room, nccl_mesh):
+    """The scan step on a world-size-1 NCCL mesh, its all-reduces recorded
+    into the captured graph (and into the rescue's conditional node):
+    captured and eager within the capture gate, the same counters and
+    rescue flags, the ICP kernel n_gn_iters + 1 a scan and 14 x 3 +
+    n_gn_iters more on a rescued one (the mesh's per-iteration match may
+    rescue the first scan on the just-born map, as
+    tests/test_parallel.py:384-390 says of the JAX package's)."""
+    runs = []
+    for eager in (False, True):
+        s = _room_sequencer(eager, mesh=nccl_mesh, rescue_enabled=True)
+        icp_cuda.reset_launches()
+        _feed(s, room, range(len(room["scans"])))
+        torch.cuda.synchronize()
+        runs.append((s, icp_cuda.launches()))
+    (cap, n_cap), (eag, n_eag) = runs
+    assert cap.graphs.captures > 0 and cap.graphs.replays > 0
+    assert cap.counters == eag.counters
+    np.testing.assert_array_equal(cap.debug_records()[:, 16],
+                                  eag.debug_records()[:, 16])
+    np.testing.assert_allclose(_positions(cap), _positions(eag), atol=0.01)
+    body = 14 * 3 + cap.cfg.n_gn_iters
+    n1 = cap.cfg.n_gn_iters + 1
+    rescued = int(eag.debug_records()[:, 16].sum())
+    assert n_eag == n1 * eag.scan_idx + body * rescued
+    # the stream runs one scan variant, whose warm-up (the first scan
+    # step) runs the rescue's body once whatever the predicate
+    assert [k for k in cap.graphs.warm if k[0] == "scan"] == [
+        ("scan", False, True)]
+    first = int(eag.debug_records()[0, 16])
+    assert n_cap == n1 * cap.scan_idx + body * (rescued + 1 - first)
+
+
+def test_shared_step_cache_interleaved_equals_separate(room):
+    """Two Sequencers of one configuration fed scan by scan in turns
+    through one step cache (one CapturedSteps, its graphs and static
+    buffers) give the bits of each run through a cache of its own, with
+    fewer graphs captured."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    datas = [room, syn.generate(syn.room_world(), syn.TrajectoryConfig(
+        t_total=3.0), syn.LidarModel(), seed=1)]
+    alone = [_room_sequencer(False) for _ in datas]
+    for s, d in zip(alone, datas):
+        _feed(s, d, range(len(d["scans"])))
+    cache = {}
+    shared = [_room_sequencer(False, step_cache=cache) for _ in datas]
+    assert shared[0].graphs is shared[1].graphs
+    imu = [0, 0]
+    for k in range(max(len(d["scans"]) for d in datas)):
+        for j, (s, d) in enumerate(zip(shared, datas)):
+            if k < len(d["scans"]):
+                imu[j] = _feed(s, d, [k], imu[j])
+    torch.cuda.synchronize()
+    for s, a in zip(shared, alone):
+        assert s.counters == a.counters
+        for x, y in zip(s.trajectory, a.trajectory):
+            assert x[0] == y[0]
+            np.testing.assert_array_equal(x[1], y[1])
+            np.testing.assert_array_equal(x[2], y[2])
+    assert shared[0].graphs.captures < sum(a.graphs.captures for a in alone)

@@ -6,31 +6,39 @@
   other (runs of the two packages are compared by ATE: the estimator is
   chaotic near tracking loss; the largest position gap is printed, not
   gated);
-* the CLI (``main``): its TUM file equals the in-process replay's, and it
-  prints the ATE against ``--gt``;
+* the CLI (``main``): it calls ``replay_bag`` as the in-process replay
+  does, its TUM file is that replay's, and it prints the ATE against
+  ``--gt``;
 * organize-by-ring: a ring-interleaved cloud with ``point_skip_divisor``
   4 is thinned in ring-major order through ``native.ring_sort``
   (``tests/test_bag_replay_cli.py``'s case);
 * the range codec's fidelity gate and its yaw fit;
 * ``StepControl``;
 * bulk mode (``bulk=True``, ``--bulk``): the bits of the streaming replay
-  with the merged slide, and the CLI's TUM file equals the in-process
-  run's;
+  with the merged slide, and the CLI's call and TUM file are the bulk
+  replay's;
 * the offline refinement (``two_pass=True``, ``smooth=True``, ``--two-pass``,
   ``--smooth``): pass 2 localizes against pass 1's map, frozen, and the
   smoothed trajectory is the one written; the CLI passes each option on
-  and writes what it gives, and ``--two-pass --smooth`` on the bag writes
-  the in-process run's TUM file;
+  and writes what it gives, and ``--two-pass --smooth`` on the bag calls
+  ``replay_bag`` as the in-process refinement does and writes its TUM
+  file;
 * the options not ported yet, and the missing card, raise.
 
 The JAX side runs once, in one fixture that one test uses. It takes most
 of this module's time: the JAX package compiles its scan, radar and
-odometry steps on the CPU.
+odometry steps on the CPU. The port's streamed, bulk and refined runs are
+each made once, by the CLI (``_cli``: ``replay_bag`` spied on, so the run
+is the CLI's own), and the CLI tests hold what it wrote and printed, and
+the arguments it passed, against that run.
 """
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import inspect
+import io
 import json
 
 import jax
@@ -129,12 +137,60 @@ def bag(tmp_path_factory):
 
 KW = dict(radar_topic="/radar", odom_topic="/odom", max_scan_points=4096,
           verbose=False)
+TOPIC_FLAGS = ["--radar-topic", "/radar", "--odom-topic", "/odom",
+               "--max-scan-points", "4096"]
+
+
+def _cli(bag, name, flags, replay_bag=None):
+    """``treplay.main`` on the bag, ``--out`` a file ``name``, with
+    ``replay_bag`` (or the function given) spied on. Returns its run: the
+    Sequencer that ``replay_bag`` returned, the arguments it got (bound to
+    its signature), what the CLI printed and the path it wrote."""
+    real = replay_bag or treplay.replay_bag
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        calls.append(real(*args, **kw))
+        return calls[-1]
+
+    out = bag["dir"] / name
+    printed = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.redirect_stdout(printed):
+        mp.setattr(treplay, "replay_bag", spy)
+        treplay.main(["--bag", bag["bag"], "--config", bag["cfg"],
+                      "--imu-topic", "/imu", "--lidar-topic", "/points",
+                      "--out", str(out), "--device", "cpu"] + flags)
+    (args, kw), s = calls
+    return dict(s=s, call=_bound(*args, **kw), printed=printed.getvalue(),
+                out=out)
+
+
+def _bound(*args, **kw):
+    """``replay_bag``'s arguments by name, defaults applied, but
+    ``verbose`` (it only prints)."""
+    b = inspect.signature(treplay.replay_bag).bind(*args, **kw)
+    b.apply_defaults()
+    return {k: v for k, v in b.arguments.items() if k != "verbose"}
+
+
+def _assert_cli_call(run, bag, **kw):
+    """The CLI called ``replay_bag`` as the in-process call with ``kw``
+    does."""
+    assert run["call"] == _bound(bag["bag"], bag["cfg"], "/imu", "/points",
+                                 device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
-def port_run(bag):
-    return treplay.replay_bag(bag["bag"], bag["cfg"], "/imu", "/points",
-                              device="cpu", **KW)
+def port_cli(bag):
+    """The bag streamed through the CLI, with ``--gt``."""
+    return _cli(bag, "cli.tum", TOPIC_FLAGS + ["--gt", bag["gt"]])
+
+
+@pytest.fixture(scope="module")
+def port_run(port_cli):
+    return port_cli["s"]
 
 
 def _traj(s):
@@ -170,20 +226,18 @@ def test_replay_matches_jax(bag, port_run):
     assert abs(ate_j - ate_t) < ATE_PAIR
 
 
-def test_cli_writes_the_replay_tum(bag, port_run, capsys):
-    out = bag["dir"] / "cli.tum"
-    treplay.main(["--bag", bag["bag"], "--config", bag["cfg"],
-                  "--imu-topic", "/imu", "--lidar-topic", "/points",
-                  "--radar-topic", "/radar", "--odom-topic", "/odom",
-                  "--max-scan-points", "4096", "--gt", bag["gt"],
-                  "--out", str(out), "--device", "cpu"])
-    printed = capsys.readouterr().out
+def test_cli_writes_the_replay_tum(bag, port_cli):
+    """The CLI calls ``replay_bag`` as the in-process replay does, writes
+    the TUM file of the replay it ran and prints its ATE."""
+    _assert_cli_call(port_cli, bag, **KW)
+    out, port_run = port_cli["out"], port_cli["s"]
     ref = bag["dir"] / "inproc.tum"
     port_run.write_tum(str(ref))
     assert out.read_text() == ref.read_text()
     ts, p, q = tev.load_tum(str(out))
     assert len(ts) == len(port_run.trajectory)
-    line = [ln for ln in printed.splitlines() if ln.startswith("ATE:")]
+    line = [ln for ln in port_cli["printed"].splitlines()
+            if ln.startswith("ATE:")]
     assert line == [f"ATE: {_ate(port_run, bag):.4f} m  RTE: nan %"]
 
 
@@ -192,17 +246,20 @@ BULK_CHUNK = 8          # the bag's eligible runs are shorter than 32
 
 @pytest.fixture(scope="module")
 def bulk_runs(bag):
-    """The bag through replay_bag(bulk=True) in chunks of BULK_CHUNK events
-    and streamed with the merged slide, on one intra-op thread (the CPU's
-    bits depend on how a reduction is split, and these runs are compared
-    bit for bit)."""
+    """The bag through the CLI's ``--bulk`` (``replay_bag(bulk=True)``) in
+    chunks of BULK_CHUNK events, and through replay_bag streamed with the
+    merged slide, on one intra-op thread (the CPU's bits depend on how a
+    reduction is split, and these runs are compared bit for bit)."""
+    import functools
+
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
+        cli = _cli(bag, "cli_bulk.tum", TOPIC_FLAGS + ["--bulk"],
+                   functools.partial(treplay.replay_bag,
+                                     bulk_chunk=BULK_CHUNK))
         return dict(
-            bulk=treplay.replay_bag(bag["bag"], bag["cfg"], "/imu",
-                                    "/points", device="cpu", bulk=True,
-                                    bulk_chunk=BULK_CHUNK, **KW),
+            cli=cli, bulk=cli["s"],
             merged=treplay.replay_bag(bag["bag"], bag["cfg"], "/imu",
                                       "/points", device="cpu",
                                       merge_marginalize=True, **KW))
@@ -230,27 +287,15 @@ def test_bulk_replay_equals_merged_streaming_replay(bag, bulk_runs):
     assert _ate(b, bag) < ATE_GATE
 
 
-def test_cli_bulk_writes_the_bulk_replay_tum(bag, bulk_runs, monkeypatch):
-    """``--bulk``: the CLI's TUM file equals the in-process bulk replay's
-    (the chunk size set to the in-process run's)."""
-    import functools
-
-    monkeypatch.setattr(treplay, "replay_bag", functools.partial(
-        treplay.replay_bag, bulk_chunk=BULK_CHUNK))
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    out = bag["dir"] / "cli_bulk.tum"
-    try:
-        treplay.main(["--bag", bag["bag"], "--config", bag["cfg"],
-                      "--imu-topic", "/imu", "--lidar-topic", "/points",
-                      "--radar-topic", "/radar", "--odom-topic", "/odom",
-                      "--max-scan-points", "4096", "--out", str(out),
-                      "--device", "cpu", "--bulk"])
-    finally:
-        torch.set_num_threads(n)
+def test_cli_bulk_writes_the_bulk_replay_tum(bag, bulk_runs):
+    """``--bulk``: the CLI calls ``replay_bag`` as the in-process bulk
+    replay does (``bulk=True``; the chunk size is set to BULK_CHUNK by the
+    function the CLI was given) and writes the TUM file of its run."""
+    cli = bulk_runs["cli"]
+    _assert_cli_call(cli, bag, bulk=True, **KW)
     ref = bag["dir"] / "inproc_bulk.tum"
     bulk_runs["bulk"].write_tum(str(ref))
-    assert out.read_text() == ref.read_text()
+    assert cli["out"].read_text() == ref.read_text()
 
 
 def test_organize_by_ring_thins_ring_major(tmp_path):
@@ -366,12 +411,16 @@ REFINE_FLAGS = ["--max-scan-points", "4096"]
 
 
 @pytest.fixture(scope="module")
-def refined(bag):
-    """The bag's IMU and scans through ``replay_bag(two_pass=True,
-    smooth=True)``."""
-    return treplay.replay_bag(bag["bag"], bag["cfg"], "/imu", "/points",
-                              device="cpu", two_pass=True, smooth=True,
-                              **REFINE_KW)
+def refined_cli(bag):
+    """The bag's IMU and scans through the CLI's ``--two-pass --smooth``
+    (``replay_bag(two_pass=True, smooth=True)``), with ``--gt``."""
+    return _cli(bag, "cli_refined.tum", REFINE_FLAGS + [
+        "--gt", bag["gt"], "--two-pass", "--smooth"])
+
+
+@pytest.fixture(scope="module")
+def refined(refined_cli):
+    return refined_cli["s"]
 
 
 @pytest.mark.parametrize("option", ["two_pass", "smooth"])
@@ -430,16 +479,14 @@ def test_cli_runs_the_refinement(bag, refined, flag, monkeypatch, capsys):
     assert lines[0].startswith("ATE:")
 
 
-def test_cli_two_pass_smooth_writes_the_replay_tum(bag, refined, capsys):
-    """``--two-pass --smooth --out`` on the bag writes the smoothed
-    trajectory of the in-process ``replay_bag(two_pass=True,
-    smooth=True)``, and prints both ATE lines."""
-    out = bag["dir"] / "cli_refined.tum"
-    treplay.main(["--bag", bag["bag"], "--config", bag["cfg"],
-                  "--imu-topic", "/imu", "--lidar-topic", "/points",
-                  *REFINE_FLAGS, "--gt", bag["gt"], "--out", str(out),
-                  "--device", "cpu", "--two-pass", "--smooth"])
-    printed = capsys.readouterr().out
+def test_cli_two_pass_smooth_writes_the_replay_tum(bag, refined_cli):
+    """``--two-pass --smooth --out`` on the bag calls ``replay_bag`` as the
+    in-process ``replay_bag(two_pass=True, smooth=True)`` does, writes the
+    smoothed trajectory of its run, and prints both ATE lines."""
+    _assert_cli_call(refined_cli, bag, two_pass=True, smooth=True,
+                     **REFINE_KW)
+    refined, out = refined_cli["s"], refined_cli["out"]
+    printed = refined_cli["printed"]
     ref = bag["dir"] / "inproc_refined.tum"
     treplay.write_smoothed_tum(ref, refined.smoothed)
     assert out.read_text() == ref.read_text()

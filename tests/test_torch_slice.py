@@ -284,6 +284,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert {'two_pass', 'smooth'} <= set(inspect.signature("
         "synthetic_replay.run).parameters)\n"
         "assert 'init_map' in inspect.signature(Sequencer).parameters\n"
+        # the mesh and the step cache (item 14)
+        "assert 'mimosa_tpu_torch.parallel.sharded' in names, names\n"
+        "assert {'mesh', 'step_cache'} <= set(inspect.signature("
+        "Sequencer).parameters)\n"
+        "assert 'step_cache' in inspect.signature("
+        "synthetic_replay.run).parameters\n"
         "assert callable(synthetic_replay.bulk_stream)\n"
         "assert len(names) > 12, names\n"
         "assert not bad, bad\n"
