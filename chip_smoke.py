@@ -5,6 +5,7 @@
     python3 chip_smoke.py --stage-split   # only the per-stage split (11.)
     python3 chip_smoke.py --chunk-graph   # only the chunk-graph design (12.)
     python3 chip_smoke.py --mesh          # only 4.'s captured run and 15.
+    python3 chip_smoke.py --viz           # 16. and 17. with what they read
 
 Drives the port (``mimosa_tpu_torch``) through its main paths on the card
 and prints one line per phase; any failure raises, so the exit code is
@@ -60,16 +61,18 @@ of JAX or of the JAX package.
    ``synthetic_replay.four_modality_stream`` (one radar frame in four
    60 ms late, every sixth scan delivered again 150 ms late, two swapped
    scans, a same-key duplicate, odometry right after a scan, an odometry
-   outage), captured (this slice's main path) and eager in one process
-   with a synchronize after each event. Each: ATE < 0.08 m, every late
-   path taken (``MM_COUNTERS``), the ICP kernel launched
-   (n_gn_iters + 1) times per scan step in order and late (the count, and
-   the kernels the profiler sees in a stretch of 14 events around the
-   second swapped scan), host ms an event by kind (median, p90), device
-   ms and ops an event by kind (profiler ranges over that stretch), the
-   device's idle share, wall seconds per sensor second and the peak
-   device memory; the captured run captured each step variant
-   (``MM_VARIANTS``) once; captured and eager positions within 0.01 m;
+   outage), captured (this slice's main path) with a synchronize after
+   each event: ATE < 0.08 m, every late path taken (``MM_COUNTERS``),
+   every step variant (``MM_VARIANTS``) run and captured once, the ICP
+   kernel launched (n_gn_iters + 1) times per scan step in order and late
+   (the count, and the kernels the profiler sees in a stretch of 14 events
+   around the second swapped scan), host ms an event by kind (median,
+   p90), device ms and ops an event by kind (profiler ranges over that
+   stretch), the device's idle share, wall seconds per sensor second and
+   the peak device memory; then eager, in the same process, over the
+   shortest prefix of the stream in which the captured run ran every
+   variant: every variant run, the ICP launches, ATE < 0.08 m, and the
+   captured positions over the prefix within 0.01 m of the eager ones;
 7. scoreboard: the rows of the JAX package's synthetic scoreboard on the
    card, with the settings and gates of ``scripts/dataset_evaluation.py``:
    through ``mimosa_tpu_torch.io.synthetic_replay.run`` room_clean (int16
@@ -125,7 +128,9 @@ of JAX or of the JAX package.
    bag through ``replay_bag(bulk=True)`` in this process (ms a scan, ATE
    < 0.08 m, the same counters), then
    ``python -m mimosa_tpu_torch.io.replay`` as a subprocess on the same
-   files, which must exit 0 with the same ATE line and TUM file;
+   files with a debug stream of every scan (``--debug-stream
+   --stream-every 1``), which must exit 0 with the same ATE line and TUM
+   file, and whose stream 16.(b) holds against the in-process run;
 13. refine: the offline refinement (a Sequencer with ``freeze_map`` started
    from a copy of another's map, ``init_map``; ``graph/refine.smooth`` over
    ``parallel/window_shard``): (a) the scoreboard's room_noisy_two_pass
@@ -154,10 +159,13 @@ of JAX or of the JAX package.
    room, its whole window shifted by ~2.5 leaves in x and y before scan
    15 (tests/test_rescue.py's kick), captured and eager: slot 16 set on
    the same scans, positions within 0.01 m, the tail ATE (the 8 states
-   after the kick left out) under 0.10 m, and over scans 13-16 the
-   profiler's ICP kernels equal to the count (the conditional node's
-   body counts its launches on the device), with each scan's device ms
-   and ops (the rescued one beside the steady ones); (b) the same room
+   after the kick left out) under 0.10 m, and over scans 13-16 the ICP
+   launches counted (the conditional node's body counts its launches on
+   the device) equal to the code's, n_gn_iters + 1 a scan and 14 x 3 +
+   n_gn_iters more on a rescued one, with the profiler's records named for
+   the kernel printed beside them (not gated: inside a conditional node's
+   body the profiler misnames kernels and loses records), and each scan's
+   device ms and ops (the rescued one beside the steady ones); (b) the same room
    unkicked, captured, rescue off then on: slot 16 never set, positions
    within 1e-6 m, ms and device ms / ops a steady scan of each (the
    node's cost); (c) room_noisy's Sequencer with ``rematch_on_motion``,
@@ -189,6 +197,36 @@ of JAX or of the JAX package.
    room_clean and room_noisy each through a Sequencer of its own, then
    both through one ``step_cache`` fed scan by scan in turns: the same
    bits, and fewer graphs captured;
+16. viz: ``io.viz`` at full width: (a) ``icp_snapshot(max_points=8192)``
+   on 4.'s captured Sequencer and its last scan: exactly one ICP kernel
+   launch by the count, its result against the plain ``linearize_with``
+   on the card on the same inputs (``viz.snapshot_inputs``; counts and
+   flags exact, H and b to rtol 2e-4 / atol 2e-2), the inlier mask's sum
+   the inlier count, unit normals, the median |p_w - foot| under 0.1 m,
+   host ms a snapshot; (b) in 10., the CLI's debug stream of every scan
+   against the in-process run: one line a scan step, each line's pose the
+   TUM row of its time at the line's rounding, its ICP, degeneracy and
+   photometric slots the in-process debug records, the last line's scan
+   counters the final ones; (c) 9.'s live driver again with a debug stream
+   of every scan: 9.'s gates (no drop, no ERROR record, ...), one line a
+   scan step, push to on_state ms beside 9.'s; (d) the feature overlay's
+   device arrays (``viz.feature_overlay_arrays``) at 64x1024 on 5.'s
+   captured Sequencer, card against a CPU twin: feature centers within
+   1e-3 px, the masks equal; (e) ``linearize_binary`` at N = 8192 on
+   (a)'s map and points, card against CPU (counts exact, H, b and mean |r|
+   to the gate of 3.), and at an identity target its source block against
+   the ICP kernel's H and b (the same gate);
+17. ouster: the exact Ouster photometric model at OS-1-64 widths: 5.'s
+   room (4 s, its noise) from ``synthetic.generate_ouster`` with 64 rows
+   at 5.'s beam altitudes, 1024 columns and a per-row shift table from a
+   seeded generator (``tests/test_bulk.py:143-145``), in the Ouster sensor
+   frame (``synthetic.ouster_sensor_frame``: the exact model's column
+   convention), through 5.'s Sequencer with ``exact_ouster`` at that table,
+   captured: ``add_scans_bulk`` in chunks of 16 against merged streaming,
+   ATE < 0.08 m and RTE printed, slot 12 above 0 on every step after the
+   second, the same slot 12 and positions within 1e-6 m, ICP launches
+   n_gn_iters + 1 a scan step by the count, ms a scan and warm scans/s of
+   both over the last 16 scans;
 11. with ``--stage-split`` and nothing else: the entry-width replay run
    eagerly with a device synchronize and a host clock around each stage of
    the scan step, printing host ms a scan step by stage (no JSON lines);
@@ -197,13 +235,17 @@ of JAX or of the JAX package.
    per-step replays the bulk scheduler makes and against streaming:
    capture seconds, graph memory, ms a chunk of each, device ms between
    steps, and whether they give the same bits (no JSON lines).
+18. with ``--viz`` and nothing else: 5.'s captured run, 10., 4.'s
+   captured run, 9., 16. and 17. (no JSON lines).
 
 The last two lines are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON record
 of the kernels: the ICP kernel (launches on the entry-width, photometric,
 four-modality, bulk, online, bag-replay, refinement, rescue and mesh
-paths, each counted from 0 around its run, error, times and bound) and the
-conditional node's predicate kernel (its launches in (a)'s captured run);
+paths, each counted from 0 around its run, error, times and bound; the
+snapshot's launches in 16.(a) and the exact-Ouster bulk run's in 17.) and
+the conditional node's predicate kernel (its launches in 14.(a)'s
+captured run);
 the line before that the seconds each phase took.
 """
 
@@ -398,6 +440,25 @@ def bound(n, n_inlier):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+ICP_EXACT = ("num_inlier", "status_counts", "loc_counts_rot",
+             "loc_counts_trans", "degenerate_rot", "degenerate_trans")
+
+
+def icp_check(out, ref, what):
+    """An ICPResult against its plain version: counts and flags exact, H
+    and b within KERNEL_TOL."""
+    for name in ICP_EXACT:
+        check(torch.equal(getattr(out, name).cpu(), getattr(ref, name).cpu()),
+              f"{what}: {name} {getattr(out, name).tolist()} != plain "
+              f"{getattr(ref, name).tolist()}")
+    for name in ("H", "b"):
+        o, r = getattr(out, name).cpu(), getattr(ref, name).cpu()
+        check(torch.allclose(o, r, **KERNEL_TOL), f"{what}: {name} differs "
+              f"from plain by {(o - r).abs().max().item()}")
+    return max((getattr(out, n).cpu() - getattr(ref, n).cpu()).abs().max()
+               .item() for n in ("H", "b"))
+
+
 def room_scene(dev, n_per=6000, noise=0.003, seed=0):
     """Room cloud (floor, ceiling, three walls) inserted into a port voxel
     map at leaf 0.4 — the scene of tests/test_icp.py. The map is built on
@@ -453,20 +514,8 @@ def kernel_phase(dev):
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(bufs, again)),
               f"N={n}: two launches on the same inputs differ")
-        for name in ("num_inlier", "status_counts", "loc_counts_rot",
-                     "loc_counts_trans", "degenerate_rot",
-                     "degenerate_trans"):
-            check(torch.equal(getattr(out, name), getattr(ref, name)),
-                  f"N={n}: {name} {getattr(out, name).tolist()} != plain "
-                  f"{getattr(ref, name).tolist()}")
+        err = icp_check(out, ref, f"N={n}")
         check(int(out.num_inlier) > n // 2, f"N={n}: too few inliers")
-        for name in ("H", "b"):
-            o, r = getattr(out, name), getattr(ref, name)
-            check(torch.allclose(o, r, **KERNEL_TOL),
-                  f"N={n}: {name} differs from plain by "
-                  f"{(o - r).abs().max().item()}")
-        err = max((out.H - ref.H).abs().max().item(),
-                  (out.b - ref.b).abs().max().item())
         lam_err, dot_min = eigen_check(out, bufs[0])
         check(lam_err <= EIGVAL_TOL, f"N={n}: kernel eigenvalues differ from "
               f"torch eigh3 by {lam_err:.3e} of max |lambda|")
@@ -663,7 +712,7 @@ def slice_run(tag, label, s, data, ate_gate, stage_ranges=False):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and "nccl" in e.name.lower())
     out = dict(name=name, launches=launches, ran=ran, steps=steps, ate=ate,
-               nccl=nccl / n_prof,
+               s=s, data=data, nccl=nccl / n_prof,
                med=statistics.median(steady),
                p90=float(np.percentile(steady, 90)), first=ms[1:5],
                busy=busy / n_prof, n_dev=n_dev / n_prof,
@@ -752,13 +801,14 @@ def photo_data():
         range_noise=0.01)
 
 
-def photo_sequencer(eager):
+def photo_sequencer(eager, seq_kw=None, photo_kw=None):
     """The geometric + photometric Sequencer with bench.py's photometric
     settings (bench.py:79-83, 109-148): the full cloud shipped (int16 codec
     with the intensity column, point_skip 1) and every 4th lane to
     geometry, 8192 ICP points, 2^19 voxels, K=8, and the photometric
     configuration at the LiDAR's 64 x 1024 image with the FIR line removal
-    and brightness flattening on."""
+    and brightness flattening on (other SequencerConfig and
+    PhotometricConfig settings in ``seq_kw`` and ``photo_kw``)."""
     from mimosa_tpu_torch.graph import sequencer as seq
     from mimosa_tpu_torch.graph import window as win
     from mimosa_tpu_torch.io import synthetic as syn
@@ -773,7 +823,7 @@ def photo_sequencer(eager):
                             n_map_points=16384, geo_leaf=0.5,
                             map_insert_leaf=0.2, keyframe_trans_thresh=0.3,
                             keyframe_rot_thresh=0.15, n_gn_iters=3,
-                            max_trajectory=1024),
+                            max_trajectory=1024, **(seq_kw or {})),
         win.WindowConfig(K=8),
         vh.VoxelMapConfig(leaf_size=0.5, capacity_log2=19,
                           plane_min_points=5, lru_horizon=0),
@@ -782,7 +832,8 @@ def photo_sequencer(eager):
                              fov_up=lm.fov_up, fov_down=lm.fov_down,
                              range_min=0.5, range_max=60.0,
                              gradient_threshold=2.0, nma_radius=5,
-                             num_features=64, margin=3, intensity_scale=1.0),
+                             num_features=64, margin=3, intensity_scale=1.0,
+                             **(photo_kw or {})),
         eager=eager)
     check(s.device.type == "cuda", f"the Sequencer chose {s.device}")
     check((s.graphs is None) == eager, "the Sequencer's capture setting")
@@ -793,7 +844,8 @@ def photo_phase():
     """The geometric + photometric slice at 64 x 1024 captured (the main
     path) and then eager in one process (:func:`captured_vs_eager`), the
     eager run's last scans with the photometric stages in profiler
-    ranges."""
+    ranges. Returns the captured run's ICP launches, the profiler's ICP
+    kernels and the captured run."""
     t0 = time.perf_counter()
     data = photo_data()
     print(f"[photo] {len(data['scans'])} scans of "
@@ -804,7 +856,7 @@ def photo_phase():
                     PHOTO_ATE_GATE)
     eag = slice_run("photo", label, photo_sequencer(True), data,
                     PHOTO_ATE_GATE, stage_ranges=True)
-    return captured_vs_eager("photo", cap, eag)
+    return (*captured_vs_eager("photo", cap, eag), cap)
 
 
 # the four-modality phase's event kinds, as the host sorts an event before
@@ -874,13 +926,22 @@ def busy_by_range(events, names):
     return out
 
 
-def mm_run(eager, data, events, mesh=None, tag="multimodal"):
+def step_variants(s):
+    """The step variants Sequencer ``s`` has run (its step cache's keys),
+    as ``variant`` names them."""
+    return {variant(k[2:]) for k in s._step_cache if k[1] == "step"}
+
+
+def mm_run(eager, data, events, mesh=None, tag="multimodal", upto=None):
     """The four-modality stream through the entry-width Sequencer, captured
     or eager, with a synchronize after each event: ms per event by kind
     (an event that ran a variant's warm-up or capture counted apart), and
     a profiled stretch around the second swapped scan's insertion with
     each event in a profiler range named by its kind. ``mesh``: the
-    Sequencer on that mesh (the lines then tagged ``tag``)."""
+    Sequencer on that mesh (the lines then tagged ``tag``). ``upto``: only
+    the first ``upto`` events, with no profiled stretch, and every variant
+    of ``MM_VARIANTS`` run in them in place of every late path taken; the
+    run's ``first`` holds the event at which each variant first ran."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mimosa_tpu_torch.io.synthetic_replay import (feed_event,
@@ -890,15 +951,18 @@ def mm_run(eager, data, events, mesh=None, tag="multimodal"):
     s = entry_sequencer(eager=eager, mesh=mesh)
     name = "eager" if eager else "captured"
     check((s.graphs is None) == eager, "the Sequencer's capture setting")
+    if upto is not None:
+        events = events[:upto]
+        name += f" over the first {upto} events"
     # the stretch: the later of the two swapped scans (n/2 + 3), arriving
     # after its successor, and the events around it
     sc = data["scans"][len(data["scans"]) // 2 + 3]
-    late = next(i for i, (t, _, m) in enumerate(events)
-                if m is sc and t > s._scan_t_end(sc))
-    w0, w1 = late - 8, late + 6
+    late = next((i for i, (t, _, m) in enumerate(events)
+                 if m is sc and t > s._scan_t_end(sc)), None)
+    w0, w1 = (-1, -1) if upto is not None else (late - 8, late + 6)
     torch.cuda.reset_peak_memory_stats()
     icp_cuda.LAUNCHES = 0
-    rows, imu_i, prof = [], 0, None
+    rows, imu_i, prof, first = [], 0, None, {}
     for i, ev in enumerate(events):
         if i == w0:
             prof = profile(activities=[ProfilerActivity.CPU,
@@ -916,6 +980,8 @@ def mm_run(eager, data, events, mesh=None, tag="multimodal"):
         ms = (time.perf_counter() - t0) * 1e3
         setup = not eager and g0 != (len(s.graphs.warm), s.graphs.captures)
         rows.append((kind, ms, setup, ready, ev[0], w0 <= i < w1))
+        for v in step_variants(s) - set(first):
+            first[v] = i
         if i == w1 - 1:
             prof.__exit__(None, None, None)
             ran_launches = icp_cuda.LAUNCHES - launches0
@@ -925,6 +991,24 @@ def mm_run(eager, data, events, mesh=None, tag="multimodal"):
     check(launches == n1 * steps, f"{name}: ICP kernel launched {launches} "
           f"times in {steps} scan steps (in order and late), expected "
           f"{n1 * steps}")
+    check(set(first) == MM_VARIANTS, f"{name}: the stream ran the variants "
+          f"{sorted(first, key=str)}")
+    traj = np.asarray([p for _, p, _ in s.trajectory])
+    check(np.isfinite(traj).all(), f"{name}: non-finite poses")
+    if upto is not None:
+        ate = trajectory_ate(s, data)
+        check(ate < ENTRY_ATE_GATE, f"{name}: four-modality ATE {ate:.4f} "
+              f"m >= {ENTRY_ATE_GATE}")
+        ms_ev = [r[1] for r in rows if r[3] and not r[2]]
+        print(f"[{tag}] {name}: {steps} scan steps, every variant run "
+              f"(first at event " + ", ".join(
+                  f"{v} {i}" for v, i in sorted(first.items(), key=str))
+              + f"), ICP kernel launches {launches} (= {n1} x {steps}), ATE "
+              f"{ate:.5f} m (gate {ENTRY_ATE_GATE}), host ms an event "
+              f"(synchronized) median {statistics.median(ms_ev):.2f}",
+              flush=True)
+        return dict(name=name, launches=launches, steps=steps, ate=ate,
+                    traj=traj, counters=dict(s.counters), first=first)
     events_p = prof.events()
     ran = sum(1 for e in events_p
               if e.device_type == torch.autograd.DeviceType.CUDA
@@ -935,13 +1019,11 @@ def mm_run(eager, data, events, mesh=None, tag="multimodal"):
     c = s.counters
     for k in MM_COUNTERS:
         check(c.get(k, 0) > 0, f"{name}: the stream never took {k}: {c}")
-    traj = np.asarray([p for _, p, _ in s.trajectory])
-    check(np.isfinite(traj).all(), f"{name}: non-finite poses")
     ate = trajectory_ate(s, data)
     check(ate < ENTRY_ATE_GATE, f"{name}: four-modality ATE {ate:.4f} m >= "
           f"{ENTRY_ATE_GATE}")
     out = dict(name=name, launches=launches, ran=ran, steps=steps, ate=ate,
-               traj=traj, counters=dict(c),
+               traj=traj, counters=dict(c), first=first,
                mem=torch.cuda.max_memory_allocated() / 2**20)
     live = [r for r in rows if r[3]]
     steady = [r for r in live if not r[2]]
@@ -997,26 +1079,27 @@ def mm_run(eager, data, events, mesh=None, tag="multimodal"):
 
 def multimodal_phase():
     """The four-modality stream at entry widths, captured (this slice's
-    main path) and then eager in one process."""
+    main path, the whole stream), then eager over the shortest prefix of
+    the stream that runs every variant of ``MM_VARIANTS`` (the captured
+    run's first event of each), in one process: the captured positions
+    over that prefix within the capture gate of the eager ones."""
     t0 = time.perf_counter()
     data, events = mm_stream()
     print(f"[multimodal] {len(events)} events generated in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cap = mm_run(False, data, events)
-    eag = mm_run(True, data, events)
-    check(cap["counters"] == eag["counters"], "captured and eager counters "
-          "differ")
-    check(cap["traj"].shape == eag["traj"].shape, "trajectory lengths differ")
-    gap = float(np.abs(cap["traj"] - eag["traj"]).max())
+    upto = max(cap["first"].values()) + 1
+    eag = mm_run(True, data, events, upto=upto)
+    n = len(eag["traj"])
+    check(0 < n <= len(cap["traj"]), "the eager prefix's trajectory")
+    gap = float(np.abs(cap["traj"][:n] - eag["traj"]).max())
     check(gap < CAPTURE_GAP, f"multimodal: captured and eager positions "
-          f"differ by {gap:.4f} m")
-    med = {n: statistics.median(r["ms"]["radar"]) for n, r in
-           (("cap", cap), ("eag", eag))}
-    print(f"[multimodal] captured vs eager: radar ms an event {med['cap']:.2f}"
-          f" vs {med['eag']:.2f}, device idle {cap['idle']:.1f}% vs "
-          f"{eag['idle']:.1f}%, ATE {cap['ate']:.5f} vs {eag['ate']:.5f} m, "
-          f"largest position gap {gap:.2e} m (gate {CAPTURE_GAP})",
-          flush=True)
+          f"differ by {gap:.4f} m over the first {upto} events")
+    print(f"[multimodal] captured vs eager over the first {upto} of "
+          f"{len(events)} events (every variant run): {n} trajectory rows, "
+          f"largest position gap {gap:.2e} m (gate {CAPTURE_GAP}); captured "
+          f"radar ms an event {statistics.median(cap['ms']['radar']):.2f}, "
+          f"ATE {cap['ate']:.5f} m over the whole stream", flush=True)
     return cap["launches"], cap["ran"]
 
 
@@ -1686,7 +1769,7 @@ def online_events(data):
     return sorted(ev)
 
 
-def online_phase():
+def online_phase(stream=None, tag="[online]"):
     """The online estimator (``io.online.OnlineEstimator``, scans staged on the
     pusher's thread, the default backlog bound) around the entry-width
     Sequencer, captured, on the 4 s room: the first scans pushed with a
@@ -1695,7 +1778,10 @@ def online_phase():
     wall clock reaches its arrival). Gates: no scan dropped, no ERROR
     record from the worker, ATE, ICP launches, and the trajectory equal to
     the same Sequencer fed the worker's event order offline, captured.
-    Returns the ICP launches and graph replays of the online run."""
+    ``stream``: a debug stream the worker emits to after each scan (the
+    lines printed under ``tag``). Returns the ICP launches, the graph
+    replays and the median ms from a scan's push to its on_state, of the
+    online run, and its Sequencer."""
     from mimosa_tpu_torch.io.online import OnlineEstimator
     from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
     from mimosa_tpu_torch.ops import icp_cuda
@@ -1724,7 +1810,7 @@ def online_phase():
     est = OnlineEstimator(
         s, on_propagated=lambda ts, q, p, v: props.append(ts),
         on_state=lambda ts, *st: states.append((ts, time.perf_counter())),
-        stage_on_push=True)
+        stage_on_push=True, debug_stream=stream)
     check(est.max_pending_scans == 8, "the default backlog bound")
 
     def push(kind, k, real_time=False):
@@ -1796,8 +1882,10 @@ def online_phase():
                        - np.asarray([p for _, p, _ in off.trajectory])).max())
     check(gap < ONLINE_GAP, f"online and offline positions differ by {gap:.3e}"
           f" m")
-    print(f"[online] entry widths, OnlineEstimator (stage_on_push, backlog "
-          f"bound {est.max_pending_scans}): {n_warm} scans pushed with a "
+    print(f"{tag} entry widths, OnlineEstimator (stage_on_push, backlog "
+          f"bound {est.max_pending_scans}"
+          + (", a debug stream of every scan" if stream else "")
+          + f"): {n_warm} scans pushed with a "
           f"flush each until every variant ran its warm-up and capture, "
           f"then {c['scans'] - n_warm} scans and {len(imu_us)} IMU samples "
           f"in real time over {real_s:.2f} s (scans {1e3 * ONLINE_ARRIVAL:g} "
@@ -1807,14 +1895,14 @@ def online_phase():
           f"on_state ms median {statistics.median(lat):.2f} p90 "
           f"{float(np.percentile(lat, 90)):.2f} over {len(lat)} scans",
           flush=True)
-    print(f"[online] scans dropped for backlog {c['scans_dropped_backlog']}, "
+    print(f"{tag} scans dropped for backlog {c['scans_dropped_backlog']}, "
           f"rebases {c['rebases']}, propagated outputs {len(props)}, ICP "
           f"kernel launches {launches} (= {n1} x {s.scan_idx}), graph "
           f"replays {replays}, worker ERROR records {len(errors.records)}, "
           f"ATE {ate:.5f} m (gate {ENTRY_ATE_GATE}); the same Sequencer fed "
           f"the worker's {len(order)} events offline, captured: largest "
           f"position gap {gap:.3e} m (gate {ONLINE_GAP:g})", flush=True)
-    return launches, replays
+    return launches, replays, statistics.median(lat), s
 
 
 # the JAX package's bag CLI test configuration (SYN_PARAMS,
@@ -1977,11 +2065,13 @@ def replay_phase():
         check(bulk_ate < REPLAY_ATE_GATE, f"replay bulk ATE {bulk_ate:.4f} m "
               f">= {REPLAY_ATE_GATE}")
         t0 = time.perf_counter()
+        jsonl = os.path.join(tmp, "stream.jsonl")
         cli = subprocess.run(
             [sys.executable, "-m", "mimosa_tpu_torch.io.replay", "--bag", bag,
              "--config", cfgp, "--imu-topic", "/imu", "--lidar-topic",
              "/points", "--radar-topic", "/radar", "--max-scan-points",
-             str(n_pts), "--gt", gtp, "--out", outp],
+             str(n_pts), "--gt", gtp, "--out", outp, "--debug-stream", jsonl,
+             "--stream-every", "1"],
             capture_output=True, text=True, timeout=600,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         cli_s = time.perf_counter() - t0
@@ -1995,6 +2085,9 @@ def replay_phase():
         with open(outp) as a, open(outp + ".inproc") as b:
             same_tum = a.read() == b.read()
         check(same_tum, "the CLI's TUM file differs from the in-process run")
+        with open(jsonl) as f:
+            lines = [json.loads(ln) for ln in f]
+        stream_checks(lines, s, outp, cli.stdout)
     print(f"[replay] OS-1-64 widths ({n_pts} points a scan), photometric + "
           f"radar config from YAML: bag, config and ground truth written in "
           f"{setup_s:.1f} s; replay_bag in process: {s.scan_idx} scan steps "
@@ -2020,6 +2113,54 @@ def replay_phase():
           f"exit 0 in {cli_s:.1f} s; its line '{ate_line[0]}' and its TUM "
           f"file ({len(tr)} poses) equal the in-process run's", flush=True)
     return launches, replays
+
+
+def stream_checks(lines, s, tum, stdout):
+    """[viz] (b): the CLI's debug stream of every scan (``lines``) against
+    the in-process replay ``s`` of the same bag and the CLI's TUM file:
+    one line per scan step, in order; each line's pose the TUM row of its
+    time at the line's rounding (half a unit of its last decimal: the TUM
+    text holds the f32 value's shortest repr); its ICP, degeneracy and
+    photometric slots the in-process run's debug record of that scan; the
+    last line's scan counters the run's final ones (radar frames after the
+    last scan count on); the CLI prints the line count."""
+    from mimosa_tpu_torch.utils import evaluation as ev
+
+    check([ln["scan"] for ln in lines] == list(range(1, s.scan_idx + 1)),
+          f"the CLI's debug stream holds scans "
+          f"{[ln['scan'] for ln in lines]}, the run {s.scan_idx}")
+    ts, p, q = ev.load_tum(tum)
+    rec = s.debug_records()
+    for ln in lines:
+        k = int(np.argmin(np.abs(ts - ln["ts"])))
+        r = rec[ln["scan"] - 1]
+        check(abs(ts[k] - ln["ts"]) < 1e-6
+              and np.abs(np.asarray(ln["p"]) - p[k]).max() <= 5.01e-5
+              and np.abs(np.asarray(ln["q_wxyz"]) - q[k]).max() <= 5.01e-7,
+              f"debug line of scan {ln['scan']}: pose {ln['p']} "
+              f"{ln['q_wxyz']}, the TUM row {p[k]} {q[k]}")
+        check(ln["icp_inliers"] == int(r[0])
+              and ln["icp_status"] == [int(v) for v in r[1:5]]
+              and ln["degen_rot"] == [bool(v > 0.5) for v in r[6:9]]
+              and ln["degen_trans"] == [bool(v > 0.5) for v in r[9:12]]
+              and ln["photo_tracked"] == int(r[12]),
+              f"debug line of scan {ln['scan']} against the in-process "
+              f"record {r.tolist()}")
+    last = {k: v for k, v in lines[-1]["counters"].items()
+            if k.startswith("scans")}
+    check(last == {k: v for k, v in s.counters.items()
+                   if k.startswith("scans")},
+          f"the last debug line's counters {lines[-1]['counters']}, the "
+          f"run's {s.counters}")
+    check(f"({len(lines)} lines)" in stdout, "the CLI's line count")
+    print(f"[viz] (b) the bag CLI with --debug-stream --stream-every 1: "
+          f"{len(lines)} lines (scans 1-{s.scan_idx}), each line's pose the "
+          f"TUM row of its time at the line's rounding, its ICP, degeneracy "
+          f"and photometric slots the in-process run's records, the last "
+          f"line's scan counters the run's final ones; photometric features "
+          f"tracked a line median "
+          f"{statistics.median(ln['photo_tracked'] for ln in lines):.0f}",
+          flush=True)
 
 
 # the two scoreboard rows of the offline refinement
@@ -2475,13 +2616,15 @@ def rescue_kicked(data):
     check(gap < CAPTURE_GAP, f"rescue: captured and eager positions differ "
           f"by {gap:.4f} m")
     events = cap["prof"].events()
+    # the profiler's records named for the kernel are printed, not held to
+    # the count: inside a conditional node's body it names other kernels as
+    # this one and loses records (PERF.md section 6); the count (the
+    # host's, with the bodies' device counter folded in) is held to the
+    # code's
     ran = sum(1 for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA
               and "icp_linearize_kernel" in e.name)
     cap["ran"] = ran
-    check(ran == cap["counted"], f"rescue: the profiler saw {ran} ICP "
-          f"kernels over scans {stretch[0]}-{stretch[-1]}, the count says "
-          f"{cap['counted']}")
     dev = busy_by_range(events, [f"scan {k}" for k in stretch])
     rescued = [k for k in stretch if cap["flags"][k - 1] > 0]
     steady = [k for k in stretch if cap["flags"][k - 1] == 0]
@@ -2489,11 +2632,16 @@ def rescue_kicked(data):
           f"rescued or a steady scan")
     per = {k: dev[f"scan {k}"][:2] for k in stretch}
     n1 = cap["s"].cfg.n_gn_iters + 1
+    body = 14 * 3 + n1 - 1
+    want = n1 * len(stretch) + body * len(rescued)
+    check(cap["counted"] == want, f"rescue: the count says "
+          f"{cap['counted']} ICP launches over scans {stretch[0]}-"
+          f"{stretch[-1]}, the code {want}")
     print(f"[rescue] (a) captured vs eager: gap {gap:.2e} m (gate "
-          f"{CAPTURE_GAP}); profiled scans {stretch[0]}-{stretch[-1]}: "
-          f"{ran} ICP kernels ran (= {n1} a scan + "
-          f"{14 * 3 + n1 - 1} on each rescued scan; the count, with the "
-          f"conditional bodies' device counter, {cap['counted']}); device "
+          f"{CAPTURE_GAP}); scans {stretch[0]}-{stretch[-1]}: "
+          f"{cap['counted']} ICP launches counted, with the conditional "
+          f"bodies' device counter (= {n1} a scan + {body} on each rescued "
+          f"scan); the profiler's records named for the kernel {ran}; device "
           f"ms / ops a scan: " + ", ".join(
               f"scan {k}{' (rescued)' if k in rescued else ''} "
               f"{v[0]:.3f} / {v[1]}" for k, v in per.items())
@@ -2848,6 +2996,292 @@ def mesh_phase(single, kernel_us):
     return cap["launches"], cap["ran"]
 
 
+VIZ_POINTS = 8192         # icp_snapshot's points at entry widths
+OVERLAY_PX = 1e-3         # [px] the overlay's feature centers, card vs CPU
+def cpu_twin(s):
+    """A CPU Sequencer of ``s``'s configuration holding ``s``'s state."""
+    from mimosa_tpu_torch import convert
+    from mimosa_tpu_torch.graph import sequencer as seq
+
+    c = seq.Sequencer(s.cfg, s.win_cfg, s.map_cfg, s.geo_cfg, s.photo_cfg,
+                      device="cpu")
+    return convert.load_sequencer_state(c, convert.sequencer_state(s))
+
+
+def viz_snapshot(cap):
+    """(a) icp_snapshot on the slice's captured entry-width Sequencer and
+    its last scan: one ICP launch, the kernel's result against the plain
+    version on the card on the same inputs, the marker data's checks.
+    Returns the launches and the snapshot's inputs."""
+    from mimosa_tpu_torch.io import viz
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    s, scan = cap["s"], cap["data"]["scans"][-1]
+    args = (s, scan["points"], scan["valid"], VIZ_POINTS)
+    icp_cuda.reset_launches()
+    snap = viz.icp_snapshot(*args)
+    launches = icp_cuda.launches()
+    check(launches == 1, f"viz: the snapshot launched the ICP kernel "
+          f"{launches} times, expected 1")
+    inputs = viz.snapshot_inputs(*args)
+    ref = geo.linearize_with(*inputs, s.geo_cfg, s.window.g_dir)
+    err = icp_check(snap["icp"], ref, "viz snapshot")
+    inl = snap["inlier"]
+    check(int(inl.sum()) == snap["num_inlier"] > 50, f"viz: "
+          f"{int(inl.sum())} inliers in the mask, {snap['num_inlier']} "
+          f"counted")
+    nn = np.linalg.norm(snap["normal"][inl], axis=-1)
+    check(np.allclose(nn, 1.0, atol=1e-3), "viz: a normal is not unit")
+    seg = float(np.median(np.linalg.norm(snap["p_w"][inl]
+                                         - snap["foot"][inl], axis=-1)))
+    check(seg < 0.1, f"viz: median point-to-plane segment {seg:.4f} m")
+    host_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        viz.icp_snapshot(*args)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[viz] (a) icp_snapshot(max_points={VIZ_POINTS}) on the slice's "
+          f"captured entry-width Sequencer, last scan: ICP kernel launches "
+          f"{launches}; against the plain linearize_with on the card on the "
+          f"same inputs: counts and flags exact, max |dH|,|db| {err:.3e} "
+          f"(gate {KERNEL_TOL}); {snap['num_inlier']} inliers = the mask's, "
+          f"unit normals, median |p_w - foot| {seg:.4f} m (gate 0.1); host "
+          f"ms a snapshot median {statistics.median(host_ms):.2f} over 20 "
+          f"(the result read to the host)", flush=True)
+    return launches, inputs
+
+
+def viz_overlay(photo):
+    """(d) the feature overlay's device arrays at 64x1024 on the photometric
+    slice's captured Sequencer and its last scan, card against a CPU twin:
+    feature centers within OVERLAY_PX, the visibility masks equal."""
+    from mimosa_tpu_torch.io import viz
+
+    s, scan = photo["s"], photo["data"]["scans"][-1]
+    args = (scan["points"], scan["intensity"], scan["valid"])
+    t0 = time.perf_counter()
+    card = viz.feature_overlay_arrays(s, *args)
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = viz.feature_overlay_arrays(cpu_twin(s), *args)
+    img, fu, fv, vis, good = card
+    d_u = float(np.abs(fu - cpu[1]).max())
+    d_v = float(np.abs(fv - cpu[2]).max())
+    check(max(d_u, d_v) <= OVERLAY_PX, f"viz overlay: feature centers "
+          f"{d_u:.2e} / {d_v:.2e} px from the CPU's")
+    check(np.array_equal(vis, cpu[3]) and np.array_equal(good, cpu[4]),
+          "viz overlay: the masks differ from the CPU's")
+    check(good.sum() > 0 and img.shape == (s.photo_cfg.rows,
+                                           s.photo_cfg.cols),
+          "viz overlay: no tracked feature on the image")
+    d_img = np.abs(img - cpu[0])
+    print(f"[viz] (d) feature overlay arrays at {img.shape[0]}x"
+          f"{img.shape[1]} on the photometric slice's Sequencer, card vs "
+          f"CPU: {len(fu)} feature slots, {int(vis.sum())} visible, "
+          f"{int(good.sum())} on the usable mask (the same masks); centers "
+          f"within {max(d_u, d_v):.2e} px (gate {OVERLAY_PX}); image pixels "
+          f"off by more than 1e-3 {int((d_img > 1e-3).sum())} of {img.size}, "
+          f"max {d_img.max():.3e} (printed: a beam on the field of view's "
+          f"edge is in view by the last bit of asin); host ms on the card "
+          f"{ms:.2f}", flush=True)
+
+
+def viz_binary(cap, inputs):
+    """(e) linearize_binary at N = VIZ_POINTS on (a)'s map and points, card
+    against CPU; its identity-target source block against the ICP
+    kernel's H and b on the same points."""
+    import dataclasses
+
+    from mimosa_tpu_torch.core import lie
+    from mimosa_tpu_torch.lidar import geometric as geo
+    from mimosa_tpu_torch.ops import icp_cuda
+
+    s = cap["s"]
+    _, pb, pv, q, t = inputs
+    # the map's frame a little off the world's: the target state
+    q_t, t_t = lie.se3_retract(*lie.se3_identity(q.dtype, q.device),
+                               torch.tensor([0.002, -0.001, 0.003, 0.02,
+                                             0.01, -0.01], device=q.device))
+    cfg = dataclasses.replace(s.geo_cfg, use_4dof=False)
+    args = (pb, pv, q, t, q_t, t_t)
+    out = geo.linearize_binary(s.vmap, *args, s.map_cfg, cfg)
+    cpu_map = type(s.vmap)(*(x.cpu() for x in s.vmap))
+    ref = geo.linearize_binary(cpu_map, *(a.cpu() for a in args), s.map_cfg,
+                               cfg)
+    check(torch.equal(out.status_counts.cpu(), ref.status_counts),
+          f"viz binary: counts {out.status_counts.tolist()} != CPU "
+          f"{ref.status_counts.tolist()}")
+    for name in ("H", "b", "mean_abs_res"):
+        o, r = getattr(out, name).cpu(), getattr(ref, name)
+        check(torch.allclose(o, r, **KERNEL_TOL), f"viz binary: {name} "
+              f"differs from the CPU's by {(o - r).abs().max().item()}")
+    q_i, t_i = lie.se3_identity(q.dtype, q.device)
+    bi = geo.linearize_binary(s.vmap, pb, pv, q, t, q_i, t_i, s.map_cfg, cfg)
+    una = icp_cuda.linearize(geo.match(s.vmap, pb, q, t, s.map_cfg), pb, pv,
+                             q, t, cfg)
+    check(torch.equal(bi.status_counts, una.status_counts), "viz binary: "
+          "identity-target counts differ from the kernel's")
+    for o, r, name in ((bi.H[:6, :6], una.H, "H"), (bi.b[:6], una.b, "b")):
+        check(torch.allclose(o, r, **KERNEL_TOL), f"viz binary: the "
+              f"identity target's {name} differs from the kernel's by "
+              f"{(o - r).abs().max().item()}")
+    ms = cuda_ms(lambda: geo.linearize_binary(s.vmap, *args, s.map_cfg, cfg))
+    print(f"[viz] (e) linearize_binary at N={len(pb)} on the snapshot's "
+          f"map and points: card vs CPU counts exact, H, b, mean |r| within "
+          f"{KERNEL_TOL}; at an identity target its source block equals the "
+          f"ICP kernel's H and b (same gate), counts exact; "
+          f"{int(out.num_inlier)} inliers; {ms:.3f} ms a call on the card "
+          f"(plain torch op by op, median of 50, CUDA events)", flush=True)
+
+
+def viz_phase(cap, photo, online_ms):
+    """[viz]: (a) the snapshot, (c) the live driver with a debug stream of
+    every scan, (d) the overlay's device arrays, (e) the binary factor;
+    (b), the bag CLI's stream, runs in the replay phase. Returns (a)'s ICP
+    launches (the snapshot path)."""
+    import os
+    import tempfile
+
+    from mimosa_tpu_torch.io.viz import DebugStream
+
+    launches, inputs = viz_snapshot(cap)
+    with tempfile.TemporaryDirectory() as tmp:
+        stream = DebugStream(os.path.join(tmp, "online.jsonl"), every=1)
+        try:
+            _, _, ms, s = online_phase(stream, tag="[viz] (c)")
+        finally:
+            stream.close()
+        with open(stream.path) as f:
+            lines = [json.loads(ln) for ln in f]
+    check([ln["scan"] for ln in lines] == list(range(1, s.scan_idx + 1)),
+          f"viz online: the stream holds scans "
+          f"{[ln['scan'] for ln in lines]} of {s.scan_idx}")
+    print(f"[viz] (c) the live driver with a debug stream of every scan: "
+          f"{len(lines)} lines, one a scan step; push to on_state ms median "
+          f"{ms:.2f} against {online_ms:.2f} without the stream", flush=True)
+    viz_overlay(photo)
+    viz_binary(cap, inputs)
+    return launches
+
+
+OUSTER_CHUNK = 16
+OUSTER_SEED = 3           # the shift table's seed (tests/test_bulk.py:143)
+
+
+def ouster_data():
+    """The photometric slice's 4 s room (its noise, world and trajectory) as
+    a staggered Ouster OS-1-64 stream: 64 rows at the photometric slice's
+    beam altitudes (row 0 the highest, as an Ouster table has them), 1024
+    columns, a per-row shift table drawn as tests/test_bulk.py:143-145
+    draws it, in the Ouster sensor frame. Returns (data, altitudes,
+    shifts, q_b_l)."""
+    from mimosa_tpu_torch.io import synthetic as syn
+
+    lm = syn.LidarModel(n_rows=64, n_cols=1024)
+    alts = np.linspace(lm.fov_up, lm.fov_down, lm.n_rows)
+    shifts = np.random.default_rng(OUSTER_SEED).integers(
+        0, lm.n_cols, lm.n_rows)
+    data, q_b_l = syn.ouster_sensor_frame(syn.generate_ouster(
+        syn.room_world(lx=30.0, ly=16.0, lz=6.0),
+        syn.TrajectoryConfig(**PHOTO_TC), alts, shifts, n_cols=lm.n_cols,
+        seed=0, imu_noise=0.01, range_noise=0.01))
+    return data, alts, shifts, q_b_l
+
+
+def ouster_sequencer(alts, shifts, q_b_l, merge_marginalize=False):
+    """The photometric slice's Sequencer with the exact Ouster model (the
+    staggered pixel-id fill, the yaw table, the re-skew) at its beam
+    table, captured."""
+    return photo_sequencer(
+        False, seq_kw=dict(q_b_l=q_b_l, merge_marginalize=merge_marginalize),
+        photo_kw=dict(beam_altitudes=tuple(float(a) for a in alts),
+                      exact_ouster=True,
+                      pixel_shift_by_row=tuple(int(x) for x in shifts)))
+
+
+def ouster_phase():
+    """[ouster]: the exact-Ouster photometric Sequencer at OS-1-64 widths,
+    captured, through add_scans_bulk in chunks of OUSTER_CHUNK against
+    merged streaming: ATE, slot 12 on every step after the second, the
+    same slot 12 and positions within BULK_GAP, ICP launches
+    n_gn_iters + 1 a scan step by the count; ms a scan and warm scans/s of
+    both. Returns the bulk run's ICP launches."""
+    from mimosa_tpu_torch.io.synthetic_replay import trajectory_ate
+    from mimosa_tpu_torch.ops import icp_cuda
+    from mimosa_tpu_torch.utils import evaluation as ev
+
+    t0 = time.perf_counter()
+    data, alts, shifts, q_b_l = ouster_data()
+    scans, imu = data["scans"], data["imu"]
+    n, n_warm = len(scans), len(scans) - OUSTER_CHUNK
+    print(f"[ouster] {n} staggered scans of {len(scans[0]['points'])} points "
+          f"(64 x 1024, shifts {shifts.min()}-{shifts.max()} columns) "
+          f"generated in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {}
+    for name in ("streaming", "bulk"):
+        s = ouster_sequencer(alts, shifts, q_b_l,
+                             merge_marginalize=name == "streaming")
+        s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+        icp_cuda.reset_launches()
+        t0, captures = time.perf_counter(), []
+        # the warm-up (the first scans) runs chunks of a quarter size, so
+        # that the chunks' variant is captured before the timed chunk
+        for part, chunk in ((scans[:n_warm], OUSTER_CHUNK // 4),
+                            (scans[n_warm:], OUSTER_CHUNK)):
+            if name == "bulk":
+                s.add_scans_bulk(part, chunk=chunk)
+                check(s.bulk_counts["chunks"] > 0, f"ouster: no chunk ran "
+                      f"in the warm-up: {s.bulk_counts}")
+            else:
+                for sc in part:
+                    s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                               sc["valid"], intensity=sc["intensity"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            warm_s, t0 = t1 - t0, t1
+            captures.append(s.graphs.captures if s.graphs else 0)
+        check(captures[0] == captures[1], f"ouster {name}: the timed scans "
+              f"captured {captures[1] - captures[0]} graphs")
+        launches = icp_cuda.launches()
+        n1 = s.cfg.n_gn_iters + 1
+        check(launches == n1 * s.scan_idx, f"ouster {name}: ICP kernel "
+              f"launched {launches} times in {s.scan_idx} scan steps")
+        tracked = s.debug_records()[:, 12]
+        check((tracked[2:] > 0).all(), f"ouster {name}: the exact model "
+              f"tracked no feature on a steady step: {tracked.tolist()}")
+        ate = trajectory_ate(s, data)
+        check(ate < PHOTO_ATE_GATE, f"ouster {name}: ATE {ate:.4f} m >= "
+              f"{PHOTO_ATE_GATE}")
+        tr = s.trajectory
+        rte = ev.rte(np.asarray([t for t, _, _ in tr]),
+                     np.asarray([p for _, p, _ in tr]), data["gt"]["ts"],
+                     data["gt"]["pos"])
+        runs[name] = dict(s=s, launches=launches, tracked=tracked, ate=ate,
+                          rte=rte, rate=OUSTER_CHUNK / warm_s)
+    b, st = runs["bulk"], runs["streaming"]
+    check(b["s"].bulk_counts["in_chunks"] >= OUSTER_CHUNK, f"ouster: "
+          f"{b['s'].bulk_counts}")
+    check(np.array_equal(b["tracked"], st["tracked"]), "ouster: bulk and "
+          "streaming tracked other features")
+    gap = bulk_gap(b["s"], st["s"], "ouster")
+    print(f"[ouster] exact-Ouster photometric Sequencer at 64x1024, "
+          f"captured: {b['s'].scan_idx} scan steps; bulk (chunks of "
+          f"{OUSTER_CHUNK}) against merged streaming: gap {gap:.2e} m (gate "
+          f"{BULK_GAP}), the same slot 12 (features tracked a step median "
+          f"{statistics.median(st['tracked'][2:]):.0f}, min "
+          f"{st['tracked'][2:].min():.0f} of "
+          f"{st['s'].photo_cfg.num_features}); ATE {b['ate']:.5f} m (gate "
+          f"{PHOTO_ATE_GATE}), RTE {b['rte']:.3f}% (not gated: under a 10 m "
+          f"path); ICP kernel launches {b['launches']} (= "
+          f"{b['s'].cfg.n_gn_iters + 1} x {b['s'].scan_idx}); warm scans/s "
+          f"over the last {OUSTER_CHUNK} scans (one chunk; one synchronize; "
+          f"the warm-up in chunks of {OUSTER_CHUNK // 4}): bulk "
+          f"{b['rate']:.2f} ({1e3 / b['rate']:.2f} ms a scan), streaming "
+          f"{st['rate']:.2f} ({1e3 / st['rate']:.2f} ms a scan); "
+          f"{b['s'].bulk_counts}", flush=True)
+    return b["launches"]
+
+
 def cond_kernel_phase(dev):
     """The conditional node's predicate kernel (``ops/cond_cuda.py``)
     against its plain version, the host read of the predicate: a graph
@@ -2929,12 +3363,20 @@ def main():
         mesh_phase(entry_run(eager=False), 1e3 * kernel_phase(dev)[8192][
             "device_ms"])
         return 0
+    if "--viz" in sys.argv[1:]:
+        photo = slice_run("photo", "64x1024 photometric",
+                          photo_sequencer(False), photo_data(),
+                          PHOTO_ATE_GATE)
+        replay_phase()
+        viz_phase(entry_run(eager=False), photo, online_phase()[2])
+        ouster_phase()
+        return 0
     timings = kernel_phase(dev)
     cond_timing = cond_kernel_phase(dev)
     clock = [("start", time.perf_counter())]
     launches, ran, slice_cap = slice_phase()
     clock.append(("slice", time.perf_counter()))
-    photo_launches, photo_ran = photo_phase()
+    photo_launches, photo_ran, photo_cap = photo_phase()
     clock.append(("photo", time.perf_counter()))
     mm_launches, mm_ran = multimodal_phase()
     clock.append(("multimodal", time.perf_counter()))
@@ -2943,7 +3385,7 @@ def main():
     bulk_launches, bulk_ran, bulk_mixed_launches = bulk_phase(
         rows["corridor_radar"])
     clock.append(("bulk", time.perf_counter()))
-    online_launches, online_replays = online_phase()
+    online_launches, online_replays, online_ms, _ = online_phase()
     clock.append(("online", time.perf_counter()))
     replay_launches, replay_replays = replay_phase()
     clock.append(("replay", time.perf_counter()))
@@ -2954,6 +3396,10 @@ def main():
     mesh_launches, mesh_ran = mesh_phase(slice_cap,
                                          1e3 * timings[8192]["device_ms"])
     clock.append(("mesh", time.perf_counter()))
+    viz_launches = viz_phase(slice_cap, photo_cap, online_ms)
+    clock.append(("viz", time.perf_counter()))
+    ouster_launches = ouster_phase()
+    clock.append(("ouster", time.perf_counter()))
     print("[clock] seconds by phase: " + ", ".join(
         f"{n} {t - t_prev:.1f}" for (_, t_prev), (n, t)
         in zip(clock, clock[1:])), flush=True)
@@ -2981,7 +3427,8 @@ def main():
                profiled_runs_refine=refine_ran,
                launches_rescue=rescue["launches"],
                profiled_runs_rescue=rescue["ran"],
-               launches_mesh=mesh_launches, profiled_runs_mesh=mesh_ran)
+               launches_mesh=mesh_launches, profiled_runs_mesh=mesh_ran,
+               launches_viz=viz_launches, launches_ouster=ouster_launches)
     cond_rec = dict(name="cond_predicate", route="cuda",
                     source="mimosa_tpu_torch/csrc/graph_cond.cu",
                     replaces="mimosa_tpu/graph/sequencer.py:2348",

@@ -91,6 +91,34 @@ def quat_to_mat(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def mat_to_quat(m):
+    """Rotation matrix -> quaternion (Shepperd's method, branch-free)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-30)) / 2.0
+
+    qw0 = half_sqrt(1.0 + tr)
+    c0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], dim=-1)
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], dim=-1)
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    c2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], dim=-1)
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    c3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], dim=-1)
+    q = torch.where((tr > 0.0)[..., None], c0, torch.where(
+        ((m00 > m11) & (m00 > m22))[..., None], c1,
+        torch.where((m11 > m22)[..., None], c2, c3)))
+    return quat_normalize(q)
+
+
 # ---------------------------------------------------------------------------
 # SO(3) exp / log / hat / Jacobians
 # ---------------------------------------------------------------------------
@@ -112,6 +140,19 @@ def exp_so3(phi):
     k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
     w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
     return torch.cat([w, k * phi], dim=-1)
+
+
+def exp_so3_mat(phi):
+    """Axis-angle -> rotation matrix (Rodrigues), Taylor-safe."""
+    theta2 = torch.sum(phi * phi, dim=-1)[..., None, None]
+    theta = torch.sqrt(theta2 + 1e-30)
+    K = hat(phi)
+    small = theta2 < _EPS2
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye + a * K + b * (K @ K)
 
 
 def log_so3(q):
@@ -145,9 +186,28 @@ def right_jacobian_so3(phi):
     return left_jacobian_so3(-phi)
 
 
+def inv_right_jacobian_so3(phi):
+    """Inverse right Jacobian, Taylor-safe."""
+    theta2 = torch.sum(phi * phi, dim=-1)[..., None, None]
+    theta = torch.sqrt(theta2 + 1e-30)
+    K = hat(phi)
+    small = theta2 < _EPS2
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        1.0 / theta2 - (1.0 + torch.cos(theta))
+        / (2.0 * theta * torch.sin(theta) + 1e-30))
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye + 0.5 * K + cot_term * (K @ K)
+
+
 # ---------------------------------------------------------------------------
 # SE(3) as (quaternion, translation)
 # ---------------------------------------------------------------------------
+
+def se3_identity(dtype=torch.float32, device=None):
+    return (quat_identity(dtype, device),
+            torch.zeros(3, dtype=dtype, device=device))
+
 
 def se3_compose(qa, ta, qb, tb):
     """T_a * T_b."""

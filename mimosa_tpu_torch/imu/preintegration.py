@@ -165,6 +165,60 @@ def preintegrate(accs, gyros, dts, bg, ba, acc_var, gyro_var,
     )
 
 
+def _integrate_one(state: PreintState, acc, gyro, dt, acc_var, gyro_var,
+                   int_var) -> PreintState:
+    """One measurement's preintegration update (Forster eq. 35-46 style)."""
+    w = gyro - state.bg
+    a = acc - state.ba
+    dR_prev = lie.quat_to_mat(state.dq)      # R of Delta_ij so far
+    dq_inc = lie.exp_so3(w * dt)
+    Jr = lie.right_jacobian_so3(w * dt)
+    a_rot = dR_prev @ a                      # acceleration in frame i
+    A = lie.hat(a)
+    dR_inc_T = lie.quat_to_mat(dq_inc).T
+    dRA = dR_prev @ A
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    z = torch.zeros_like(eye)
+    # covariance propagation on (dR, dv, dp)
+    F = _blocks([[dR_inc_T, z, z], [-dRA * dt, eye, z],
+                 [-0.5 * dRA * dt * dt, eye * dt, eye]])
+    G_g = torch.cat([Jr * dt, z, z], dim=0)
+    G_a = torch.cat([z, dR_prev * dt, 0.5 * dR_prev * dt * dt], dim=0)
+    cov = (F @ state.cov @ F.T
+           + G_g @ G_g.T * (gyro_var / torch.clamp(dt, min=1e-9))
+           + G_a @ G_a.T * (acc_var / torch.clamp(dt, min=1e-9)))
+    # position integration noise
+    cov = cov + torch.block_diag(z, z, eye * int_var * dt)
+    return PreintState(
+        dq=lie.quat_mul(state.dq, dq_inc), dv=state.dv + a_rot * dt,
+        dp=state.dp + state.dv * dt + 0.5 * a_rot * dt * dt,
+        dt=state.dt + dt,
+        J_dr_bg=dR_inc_T @ state.J_dr_bg - Jr * dt,
+        J_dv_bg=state.J_dv_bg - dRA @ state.J_dr_bg * dt,
+        J_dv_ba=state.J_dv_ba - dR_prev * dt,
+        J_dp_bg=(state.J_dp_bg + state.J_dv_bg * dt
+                 - 0.5 * dRA @ state.J_dr_bg * dt * dt),
+        J_dp_ba=state.J_dp_ba + state.J_dv_ba * dt - 0.5 * dR_prev * dt * dt,
+        cov=cov, bg=state.bg, ba=state.ba)
+
+
+def preintegrate_sequential(accs, gyros, dts, bg, ba, acc_var, gyro_var,
+                            int_var=1e-8, valid=None) -> PreintState:
+    """The sequential oracle of :func:`preintegrate`: one update a sample,
+    in order; an invalid sample leaves the state as it was."""
+    dtype = accs.dtype
+    state = init_preint(bg.to(dtype), ba.to(dtype))
+    if valid is None:
+        valid = torch.ones(accs.shape[0], dtype=torch.bool,
+                           device=accs.device)
+    for acc, gyro, dt, ok in zip(accs, gyros, dts, valid):
+        new = _integrate_one(state, acc, gyro, dt, acc_var, gyro_var,
+                             int_var)
+        state = PreintState(*[torch.where(ok, n, o)
+                              for n, o in zip(new, state)])
+    return state
+
+
 def predict(pre: PreintState, q_i, p_i, v_i, gravity):
     """Forward prediction of state j from state i; ``gravity`` is the full
     free-fall acceleration in world (g_dir * g_mag)."""

@@ -83,19 +83,21 @@ class OnlineEstimator:
         True packs each scan and starts its host-to-device copy on the
         pusher's thread, overlapping the worker's device work. False
         defers staging to the worker.
-    debug_stream
-        The live dashboard's debug stream is not ported yet (ROADMAP item
-        15): anything but None raises NotImplementedError.
+    debug_stream : mimosa_tpu_torch.io.viz.DebugStream or None
+        Emitted on the worker thread after each scan, on its cadence (the
+        live dashboard's feed); the read follows the scan's step on the
+        worker's stream.
     """
 
     def __init__(self, seq, g_mag=9.81, on_propagated=None, on_state=None,
                  collection_slack=0.0, max_pending_scans=8,
                  stage_on_push=True, debug_stream=None):
-        if debug_stream is not None:
-            raise NotImplementedError(
-                "OnlineEstimator(debug_stream=...): io.viz.DebugStream is "
-                "not ported yet (ROADMAP item 15)")
+        if debug_stream is not None and not callable(
+                getattr(debug_stream, "emit", None)):
+            raise TypeError(f"debug_stream must be an io.viz.DebugStream, "
+                            f"not {type(debug_stream).__name__}")
         self.seq = seq
+        self.debug_stream = debug_stream
         self.on_propagated = on_propagated
         self.on_state = on_state
         self.collection_slack = float(collection_slack)
@@ -283,6 +285,8 @@ class OnlineEstimator:
             seq.add_scan(payload["ts_header"], staged=payload)
             with self._pending_lock:
                 self._n_pending_scans -= 1
+            if self.debug_stream is not None:
+                self.debug_stream.emit(seq)
         elif kind == "radar":
             ts, pts, dop, snr = payload
             seq.add_radar(ts, pts, dop, snr_db=snr)

@@ -45,17 +45,6 @@ import torch
 
 from mimosa_tpu_torch import require_cuda
 
-# options of the JAX package's replay that the port refuses, with the
-# ROADMAP item that ports each
-NOT_PORTED = {"debug_stream": 15, "stream_every": 15}
-
-
-def _refuse(option):
-    raise NotImplementedError(
-        f"replay option {option!r} is not ported yet (ROADMAP item "
-        f"{NOT_PORTED[option]})")
-
-
 class StepControl:
     """Keyboard pause/step for interactive replay debugging (the raw-tty
     control of the reference harness, src/mimosa_rosbag.cpp:31-47,166-185):
@@ -228,9 +217,13 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
     (``graph/refine.smooth``) over the bag's whole IMU stream, kept on the
     returned Sequencer as ``.smoothed = (ts, q, p)``.
 
-    ``debug_stream`` is not ported yet and raises NotImplementedError."""
-    if debug_stream is not None:
-        _refuse("debug_stream")
+    ``debug_stream``: an ``io.viz.DebugStream``, which gets one JSON line
+    per scan on its cadence (after each streamed event, forced after each
+    bulk flush and at the end of each pass)."""
+    if debug_stream is not None and not callable(
+            getattr(debug_stream, "emit", None)):
+        raise TypeError(f"debug_stream must be an io.viz.DebugStream, not "
+                        f"{type(debug_stream).__name__}")
     if bulk and step_control is not None:
         raise ValueError("bulk replay is non-interactive")
     device = require_cuda() if device is None else torch.device(device)
@@ -373,6 +366,8 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
             n_proc += sum(1 for b, _ in batch
                           if b.get("kind", "scan") == "scan")
             batch.clear()
+            if debug_stream is not None:
+                debug_stream.emit(s, force=True)
 
         t_start = time.time()
         for topic, _, t, m in msgs:
@@ -395,6 +390,8 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
                         s.add_radar(*payload)
                     else:
                         s.add_odometry(*payload)
+                    if debug_stream is not None:
+                        debug_stream.emit(s)
             elif topic == lidar_topic:
                 if skip_left["lidar"] > 0:
                     skip_left["lidar"] -= 1
@@ -471,6 +468,8 @@ def replay_bag(bag_path, config_path, imu_topic, lidar_topic,
                 pend_seq += 1
         if bulk:
             flush_bulk(force=True)
+        if debug_stream is not None:
+            debug_stream.emit(s, force=True)
         if s.device.type == "cuda":
             torch.cuda.synchronize(s.device)
         wall = time.time() - t_start
@@ -555,13 +554,11 @@ def main(argv=None):
                     help="batch smoothing of the whole final trajectory "
                          "(graph/refine.py), written to --out")
     ap.add_argument("--debug-stream", metavar="JSONL",
-                    help="not ported yet (ROADMAP item 15)")
-    ap.add_argument("--stream-every", type=int,
-                    help="not ported yet (ROADMAP item 15)")
+                    help="write a per-scan JSONL debug stream for the live "
+                         "dashboard (scripts/live_dashboard.py --follow)")
+    ap.add_argument("--stream-every", type=int, default=10,
+                    help="debug-stream cadence in scans (default 10)")
     args = ap.parse_args(argv)
-    for option in NOT_PORTED:
-        if getattr(args, option):
-            _refuse(option)
 
     import contextlib
     prof = contextlib.nullcontext()
@@ -570,17 +567,29 @@ def main(argv=None):
         prof = profile(activities=[ProfilerActivity.CPU]
                        + ([ProfilerActivity.CUDA]
                           if torch.cuda.is_available() else []))
-    with prof:
-        s = replay_bag(args.bag, args.config, args.imu_topic,
-                       args.lidar_topic, args.radar_topic, args.odom_topic,
-                       args.config_override, args.start_offset,
-                       args.duration, args.max_scan_points,
-                       device=args.device,
-                       step_control=StepControl() if args.interactive
-                       else None,
-                       ouster_metadata=args.ouster_metadata,
-                       two_pass=args.two_pass, smooth=args.smooth,
-                       bulk=args.bulk, range_transfer=args.range_transfer)
+    stream = None
+    if args.debug_stream:
+        from mimosa_tpu_torch.io.viz import DebugStream
+        stream = DebugStream(args.debug_stream, every=args.stream_every)
+    try:
+        with prof:
+            s = replay_bag(args.bag, args.config, args.imu_topic,
+                           args.lidar_topic, args.radar_topic,
+                           args.odom_topic, args.config_override,
+                           args.start_offset, args.duration,
+                           args.max_scan_points, device=args.device,
+                           step_control=StepControl() if args.interactive
+                           else None,
+                           ouster_metadata=args.ouster_metadata,
+                           two_pass=args.two_pass, smooth=args.smooth,
+                           debug_stream=stream, bulk=args.bulk,
+                           range_transfer=args.range_transfer)
+    finally:
+        if stream is not None:
+            stream.close()
+    if stream is not None:
+        print(f"debug stream -> {args.debug_stream} "
+              f"({stream.n_emitted} lines)")
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")

@@ -2,8 +2,8 @@
 
 Port of ``mimosa_tpu/io/synthetic.py`` (the room and corridor worlds, the
 analytic trajectory, the spinning-LiDAR raycast, the IMU stream, and the
-radar Doppler frames and odometry poses of the multi-sensor sequences) in
-numpy f64.
+radar Doppler frames and odometry poses of the multi-sensor sequences,
+and the staggered Ouster layout of ``generate_ouster``) in numpy f64.
 The JAX package differentiates the trajectory with ``jax.jacfwd``; here the
 derivatives of the sine-of-smoothstep trajectory are written in closed
 form, including the JAX convention at the clip's corners (a derivative of
@@ -244,6 +244,115 @@ def generate(world, tc: TrajectoryConfig, lm: LidarModel, imu_rate=200,
         gt=dict(ts=np.asarray(gt_ts), pos=np.asarray(gt_p),
                 quat=np.asarray(gt_q)),
     )
+
+
+def generate_ouster(world, tc: TrajectoryConfig, beam_altitudes,
+                    pixel_shift_by_row, n_cols=256, period=0.1,
+                    max_range=60.0, imu_rate=200, seed=0,
+                    imu_noise=0.0, range_noise=0.0, tex_amp=110.0,
+                    beam_azimuths=None, beam_offset_m=0.0):
+    """Staggered Ouster-format scans: points in sensor pixel-id order
+    (row-major, staggered column fastest), measurement block c fired at
+    ts_header + c/cols*period, with per-row destagger shifts: the raw
+    layout that the exact Ouster model's pixel-id fill and yaw table take
+    (``PhotometricConfig.exact_ouster``). Row v of block c samples the
+    azimuth of destaggered column (c + shift[v]) % cols, or the exact
+    per-beam azimuth offset where ``beam_azimuths`` (radians, one a row) is
+    given; a nonzero ``beam_offset_m`` gives the affine Ouster driver model
+    p = s*dir + n*enc (the beams fire from a ring of radius n around the
+    encoder axis), which ``config.loader.ouster_ray_dirs`` inverts for the
+    range codec. Returns what :func:`generate` returns plus each scan's
+    ``ring``; the points are the returns at firing time (motion-skewed) in
+    the encoder's (lidar) frame, which :func:`ouster_sensor_frame` turns
+    into the Ouster sensor frame. The JAX package's generator, draw for
+    draw."""
+    rng = np.random.default_rng(seed)
+    traj = make_trajectory(tc)
+    rows = len(beam_altitudes)
+    alt = np.asarray(beam_altitudes)
+    shifts = np.asarray(pixel_shift_by_row, int)
+
+    imu_ts = np.arange(0.0, tc.t_total, 1.0 / imu_rate)
+    accs, gyros = traj["imu"](imu_ts)
+    accs = accs + rng.normal(size=(len(imu_ts), 3)) * imu_noise
+    gyros = gyros + rng.normal(size=(len(imu_ts), 3)) * imu_noise * 0.1
+
+    v, c = np.meshgrid(np.arange(rows), np.arange(n_cols), indexing="ij")
+    # the encoder angle, the Ouster driver's convention 2*pi*(1 - c/N), as
+    # config.loader.ouster_ray_dirs has it
+    az_enc = 2.0 * np.pi * (1.0 - c / n_cols)
+    if beam_azimuths is not None:
+        az_s = az_enc - np.asarray(beam_azimuths)[:, None] \
+            * np.ones_like(az_enc)
+    else:
+        u_dest = (c + shifts[:, None]) % n_cols
+        az_s = 2.0 * np.pi * (1.0 - u_dest / n_cols)  # shift-quantized
+    t_rel = (c / n_cols * period).reshape(-1)
+    ca, sa = np.cos(az_s), np.sin(az_s)
+    cal = np.cos(alt)[:, None] * np.ones_like(ca)
+    sal = np.sin(alt)[:, None] * np.ones_like(ca)
+    dirs = np.stack([cal * ca, cal * sa, sal], -1).reshape(-1, 3)
+    # each beam fires from n * enc in the lidar frame, and the driver
+    # reports p = s*dir + n*enc with s the range from the beam's origin
+    beam_orig = beam_offset_m * np.stack(
+        [np.cos(az_enc), np.sin(az_enc), np.zeros_like(az_enc)],
+        -1).reshape(-1, 3) if beam_offset_m else None
+    ring = v.reshape(-1).astype(np.uint16)
+    block = c.reshape(-1)
+
+    scans, gt_ts, gt_p, gt_q = [], [], [], []
+    scan_starts = np.arange(tc.t_stationary - 0.2, tc.t_total - period,
+                            period)
+    for ts0 in scan_starts:
+        col_ts = ts0 + np.arange(n_cols) / n_cols * period
+        Rb = _quat_to_mat_np(traj["quat"](col_ts))[block]
+        o = traj["pos"](col_ts)[block]
+        if beam_orig is not None:
+            o = o + np.einsum("nij,nj->ni", Rb, beam_orig)
+        d_world = np.einsum("nij,nj->ni", Rb, dirs)
+        rr = raycast(world, o, d_world, max_range)
+        if range_noise:
+            rr = rr + rng.normal(size=rr.shape) * range_noise
+        valid = np.isfinite(rr)
+        pts = dirs * np.where(valid, rr, 0.0)[:, None]
+        if beam_orig is not None:
+            pts = np.where(valid[:, None], pts + beam_orig, 0.0)
+        hit_w = o + d_world * np.where(valid, rr, 0.0)[:, None]
+        inten = np.where(
+            valid,
+            130.0 + tex_amp * np.sin(1.3 * hit_w[:, 0])
+            * np.cos(0.9 * hit_w[:, 1])
+            + 0.6 * tex_amp * np.sin(1.7 * hit_w[:, 2]), 0.0)
+        scans.append(dict(ts_header=ts0, points=pts.astype(np.float32),
+                          t_rel=t_rel.copy(), valid=valid, ring=ring,
+                          intensity=np.clip(inten, 0, 255).astype(
+                              np.float32)))
+        t_end = np.asarray([ts0 + t_rel.max()])
+        gt_ts.append(t_end[0])
+        gt_p.append(traj["pos"](t_end)[0])
+        gt_q.append(traj["quat"](t_end)[0])
+    return dict(imu=dict(ts=imu_ts, acc=accs, gyro=gyros), scans=scans,
+                gt=dict(ts=np.asarray(gt_ts), pos=np.asarray(gt_p),
+                        quat=np.asarray(gt_q)))
+
+
+# the rotation of the Ouster driver's lidar_to_sensor_transform (wxyz): its
+# sensor frame is the lidar frame turned 180 degrees about z
+OUSTER_Q_SENSOR_LIDAR = (0.0, 0.0, 0.0, 1.0)
+
+
+def ouster_sensor_frame(data):
+    """:func:`generate_ouster`'s stream with each scan's points in the
+    Ouster sensor frame, the frame a driver publishes and the exact
+    photometric model's column convention (azimuth +pi at column 0)
+    assumes: the lidar frame turned 180 degrees about z (the rotation of
+    the driver's lidar_to_sensor_transform; its z offset left out). Lane
+    order, times and validity are unchanged. Returns (data, q_b_l): a
+    Sequencer with ``SequencerConfig(q_b_l=q_b_l)`` maps the points back
+    onto the body frame that the generator's trajectory moves."""
+    flip = np.asarray([-1.0, -1.0, 1.0], np.float32)
+    scans = [dict(sc, points=sc["points"] * flip) for sc in data["scans"]]
+    return dict(data, scans=scans), OUSTER_Q_SENSOR_LIDAR
 
 
 def _quat_mul_np(a, b):

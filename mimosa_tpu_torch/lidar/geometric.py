@@ -9,6 +9,8 @@ and per-point projection counts), with the optional 4-DoF projection.
 
 ``linearize_with`` is the plain PyTorch version of the CUDA kernel in
 ``ops/icp_cuda.py``: the CPU path, and the kernel's reference on the card.
+``linearize_binary`` is the two-key (scan-to-scan) form of the factor, in
+plain PyTorch on either device (the JAX package computes it in XLA).
 """
 
 from __future__ import annotations
@@ -142,6 +144,59 @@ def linearize(vmap_: vh.VoxelMap, points_b, valid, q, t,
     deskewed body-frame points; tangent convention as ``se3_retract``."""
     m = match(vmap_, points_b, q, t, map_cfg)
     return linearize_with(m, points_b, valid, q, t, cfg, g_dir=g_dir)
+
+
+class BinaryICPResult(NamedTuple):
+    """Two-key scan-to-scan point-to-plane block, tangent layout
+    [xi_source(6), xi_target(6)] (each [dR, dt] body-frame right)."""
+
+    H: torch.Tensor               # [12,12]
+    b: torch.Tensor               # [12]
+    num_inlier: torch.Tensor      # int32 scalar
+    status_counts: torch.Tensor   # [NUM_STATUS] int32
+    mean_abs_res: torch.Tensor
+
+
+def linearize_binary(vmap_t: vh.VoxelMap, points_src_b, valid, q_s, t_s,
+                     q_t, t_t, map_cfg: vh.VoxelMapConfig,
+                     cfg: GeometricConfig) -> BinaryICPResult:
+    """Binary scan-to-scan ICP factor: source points registered against a
+    voxel map in the TARGET state's body frame, constraining both poses.
+    The unary factor is the case T_target = identity with a world-frame
+    map (same gates and weights as :func:`linearize_with`).
+
+    With delta = T_t^-1 T_s and y = dR p + dt (the source point in the
+    target frame), the residual r = n.(y - mu) has the rows
+      d r/d xi_s = [ p x (dR^T n),  dR^T n ]
+      d r/d xi_t = [ n x y,        -n ]
+    so a common rigid motion of both states is in the null space."""
+    dtype = points_src_b.dtype
+    qi, ti = lie.se3_inverse(q_t, t_t)
+    q_d, t_d = lie.se3_compose(qi, ti, q_s, t_s)
+    Rd = lie.quat_to_mat(q_d)
+    y = points_src_b @ Rd.T + t_d
+    normal, mean, found = vh.query_planes(vmap_t, y, map_cfg)
+    r = torch.sum(normal * (y - mean), dim=-1)
+    inlier, in_dist, in_s = inlier_gates(r, points_src_b, valid, found, cfg)
+
+    ar = torch.abs(r)
+    w_huber = torch.where(ar <= cfg.huber_delta, torch.ones_like(ar),
+                          cfg.huber_delta / torch.clamp(ar, min=1e-12))
+    w = torch.where(inlier, w_huber, torch.zeros_like(ar)) / cfg.sigma ** 2
+
+    a = normal @ Rd                                 # rows are dR^T n
+    J = torch.cat([lie.cross(points_src_b, a), a,   # source block
+                   lie.cross(normal, y), -normal],  # target block
+                  dim=-1)                           # [N,12]
+    H = (J * w[:, None]).T @ J
+    b = J.T @ (w * r)
+    counts = torch.stack([
+        inlier.sum(), (valid & ~found).sum(), (valid & found & ~in_dist).sum(),
+        (valid & found & in_dist & ~in_s).sum(),
+    ]).to(torch.int32)
+    m = inlier.to(dtype)
+    mean_abs = torch.sum(ar * m) / torch.clamp(m.sum(), min=1.0)
+    return BinaryICPResult(H, b, counts[0], counts, mean_abs)
 
 
 def _eigen_selector(res: ICPResult, keep_r, keep_t):

@@ -75,6 +75,11 @@ class VoxelMap(NamedTuple):
     normal: torch.Tensor      # [C+1,3] unit plane normal
     plane_valid: torch.Tensor  # [C+1] bool
 
+    @property
+    def num_occupied(self):
+        """Occupied voxels, the write-off row left out (int32 0-d)."""
+        return self.occupied[:-1].sum().to(torch.int32)
+
 
 def create(cfg: VoxelMapConfig, device=None, dtype=torch.float32) -> VoxelMap:
     c1 = cfg.capacity + 1

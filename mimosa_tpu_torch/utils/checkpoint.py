@@ -25,21 +25,28 @@ import json
 import numpy as np
 
 from mimosa_tpu_torch import convert
+from mimosa_tpu_torch.lidar.photometric import Features
+
+# the state tuples, saved leaf by leaf in field order
+_FIELDS = {name: cls._fields for name, cls in convert._TUPLES
+           + (("features", Features),)}
 
 
 def save(seq, path):
-    """Serialize a port Sequencer to ``path`` (npz)."""
+    """Serialize a port Sequencer to ``path`` (npz), in the JAX package's
+    layout: each state tuple's fields as ``name__i`` in field order, each
+    single tensor as ``name__0``, the leaf counts and the host state in
+    ``_meta`` (so ``scripts/export_map.py`` and ``scripts/plot_debug.py``
+    read it as they read the JAX package's)."""
     state = convert.sequencer_state(seq)
     meta = {"tree": {}, "host": state.pop("host")}
     imu = state.pop("imu")
     arrays = {f"imu_{k}": v for k, v in imu.items()}
     for name, v in state.items():
-        if isinstance(v, dict):
-            meta["tree"][name] = list(v)
-            arrays.update({f"{name}__{k}": a for k, a in v.items()})
-        else:
-            meta["tree"][name] = None
-            arrays[name] = v
+        leaves = [v[k] for k in _FIELDS[name]] if isinstance(v, dict) \
+            else [v]
+        meta["tree"][name] = len(leaves)
+        arrays.update({f"{name}__{i}": a for i, a in enumerate(leaves)})
     arrays["_meta"] = np.frombuffer(
         json.dumps(meta, default=float).encode(), dtype=np.uint8)
     np.savez_compressed(path, **arrays)
@@ -60,9 +67,11 @@ def load(seq, path):
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["_meta"]).decode())
         state = {}
-        for name, fields in meta["tree"].items():
-            state[name] = z[name] if fields is None else {
-                k: z[f"{name}__{k}"] for k in fields}
+        for name, n in meta["tree"].items():
+            if n is None:
+                continue
+            state[name] = {k: z[f"{name}__{i}"] for i, k in enumerate(
+                _FIELDS[name])} if name in _FIELDS else z[f"{name}__0"]
         state["imu"] = {k: z[f"imu_{k}"] for k in ("ts", "acc", "gyro")}
     host = meta["host"]
     for k in convert.SEQ_HOST_SENSORS:

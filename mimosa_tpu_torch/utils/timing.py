@@ -13,6 +13,27 @@ import time
 from collections import defaultdict
 
 
+class Stopwatch:
+    """Elapsed / lap wall-clock timer (the reference's Stopwatch)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = time.perf_counter()
+        self._last = self._t0
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def lap(self) -> float:
+        """Seconds since the previous lap (or the reset)."""
+        now = time.perf_counter()
+        dt = now - self._last
+        self._last = now
+        return dt
+
+
 class StageTimer:
     """Accumulates per-stage wall times and counts across iterations.
 
@@ -45,3 +66,10 @@ class StageTimer:
                         mean_ms=self.totals[k] / max(self.counts[k], 1) * 1e3)
                 for k in sorted(self.totals)
             }
+
+    def report(self) -> str:
+        lines = [f"{'stage':24s} {'count':>7s} {'mean ms':>9s} {'total s':>9s}"]
+        for k, v in self.summary().items():
+            lines.append(f"{k:24s} {v['count']:7d} {v['mean_ms']:9.2f} "
+                         f"{v['total_s']:9.2f}")
+        return "\n".join(lines)

@@ -75,6 +75,11 @@ CASES = {
     "s2_basis": (lambda m, x: m.s2_basis(x["g"])),
     "s2_retract": (lambda m, x: m.s2_retract(x["g"], x["d2"])),
     "s2_local": (lambda m, x: m.s2_local(x["g"], x["g2"])),
+    "mat_to_quat": (lambda m, x: m.mat_to_quat(m.quat_to_mat(x["q"]))),
+    "exp_so3_mat": (lambda m, x: m.exp_so3_mat(x["phi"])),
+    "inv_right_jacobian_so3": (lambda m, x: m.inv_right_jacobian_so3(
+        x["phi"])),
+    "se3_identity": (lambda m, x: m.se3_identity()),
 }
 
 
@@ -131,6 +136,7 @@ EDGE_CASES = {
     "se3_retract": (lambda m, x: m.se3_retract(x["q"], x["t"], x["xi"])),
     "se3_local": (lambda m, x: m.se3_local(x["q"], x["t"], x["q2"],
                                            x["t2"])),
+    "exp_so3_mat": (lambda m, x: m.exp_so3_mat(x["phi"])),
 }
 
 
@@ -190,3 +196,45 @@ def test_eigh3_isotropic_and_zero():
     lam_t, V_t = teig.eigh3(torch.from_numpy(A))
     np.testing.assert_array_equal(lam_t.numpy(), np.asarray(lam_j))
     np.testing.assert_array_equal(V_t.numpy(), np.asarray(V_j))
+
+
+def test_voxel_map_num_occupied_matches_jax():
+    """``VoxelMap.num_occupied`` on the same cloud inserted into both
+    packages' maps: the occupied rows, the write-off row left out."""
+    import dataclasses
+
+    from mimosa_tpu.mapping import voxel_hash as jvh
+    from mimosa_tpu_torch.mapping import voxel_hash as tvh
+
+    jcfg = jvh.VoxelMapConfig(leaf_size=0.5, capacity_log2=10)
+    tcfg = tvh.VoxelMapConfig(**dataclasses.asdict(jcfg))
+    pts = np.random.default_rng(6).uniform(-4, 4, (3000, 3)).astype(
+        np.float32)
+    ok = np.ones(len(pts), bool)
+    jm = jax.jit(jvh.insert, static_argnames=("cfg",))(
+        jvh.create(jcfg, jnp.float32), jnp.asarray(pts), jnp.asarray(ok), 0,
+        jcfg)
+    tm = tvh.insert(tvh.create(tcfg), torch.from_numpy(pts),
+                    torch.from_numpy(ok), torch.zeros((), dtype=torch.int32),
+                    tcfg)
+    n = tm.num_occupied
+    assert n.dtype == torch.int32 and 0 < int(n) < tcfg.capacity
+    assert int(n) == int(jm.num_occupied) == int(tm.occupied[:-1].sum())
+
+
+def test_stopwatch_and_stage_report():
+    from mimosa_tpu_torch.utils.timing import StageTimer, Stopwatch
+
+    sw = Stopwatch()
+    lap1 = sw.lap()
+    lap2 = sw.lap()
+    assert 0.0 <= lap1 and 0.0 <= lap2 <= sw.elapsed()
+    sw.reset()
+    assert sw.elapsed() < 1.0
+    t = StageTimer()
+    for _ in range(3):
+        with t.stage("deskew"):
+            pass
+    lines = t.report().splitlines()
+    assert lines[0].split() == ["stage", "count", "mean", "ms", "total", "s"]
+    assert lines[1].split()[:2] == ["deskew", "3"]

@@ -3,7 +3,10 @@ steps captured as CUDA graphs against the same steps run op by op, on the
 card: the scan step, the photometric scan step, every variant of the
 four-modality stream (radar, odometry, late scans and radar frames), and
 the bulk scheduler's chunks (bits of merged streaming, no host sync in a
-chunk of captured variants, the ICP launches a chunk).
+chunk of captured variants, the ICP launches a chunk), and the last
+modules: the binary factor against the CPU, ``io.viz``'s snapshot (one
+kernel launch) and debug stream under a shared step cache, and the
+exact-Ouster photometric Sequencer in bulk.
 
 Every test here needs an NVIDIA GPU and nvcc (``cuda`` marker) and skips
 without one (but the native pack's build-failure test, which needs g++
@@ -1300,3 +1303,149 @@ def test_shared_step_cache_interleaved_equals_separate(room):
             np.testing.assert_array_equal(x[1], y[1])
             np.testing.assert_array_equal(x[2], y[2])
     assert shared[0].graphs.captures < sum(a.graphs.captures for a in alone)
+
+
+# --------------------------- the binary factor, the snapshot, exact Ouster
+
+def test_binary_factor_on_the_card_matches_cpu(scene):
+    """linearize_binary (plain torch on both devices) on the card against
+    the CPU on the same map, scan and poses: H and b to the kernel gate,
+    the counts exact."""
+    _, pts, valid, q, t = _args(scene, 8192)
+    # the map's frame a little off the world's: the target state
+    q_t, t_t = lie.se3_retract(*lie.se3_identity(q.dtype, q.device),
+                               torch.tensor([0.002, -0.001, 0.003, 0.02,
+                                             0.01, -0.01], device=q.device))
+    args = (pts, valid, q, t, q_t, t_t)
+    cfg = geo.GeometricConfig(**GEO_CFGS["default"])
+    out = geo.linearize_binary(scene["vmap"], *args, MAP_CFG, cfg)
+    cpu_map = type(scene["vmap"])(*(x.cpu() for x in scene["vmap"]))
+    ref = geo.linearize_binary(cpu_map, *(a.cpu() for a in args), MAP_CFG,
+                               cfg)
+    assert int(ref.num_inlier) > 1000
+    for name in geo.BinaryICPResult._fields:
+        o, r = getattr(out, name).cpu(), getattr(ref, name)
+        if o.dtype.is_floating_point:
+            torch.testing.assert_close(o, r, rtol=2e-4, atol=2e-2)
+        else:
+            assert torch.equal(o, r), (name, o, r)
+
+
+def test_icp_snapshot_launches_the_kernel_once(room):
+    """icp_snapshot on a captured Sequencer: one ICP kernel launch, whose
+    result matches the plain version on the card on the same inputs, and
+    the JAX test's checks."""
+    from mimosa_tpu_torch.io import viz
+
+    s = _room_sequencer(False)
+    _feed(s, room, range(len(room["scans"])))
+    scan = room["scans"][-1]
+    icp_cuda.reset_launches()
+    snap = viz.icp_snapshot(s, scan["points"], scan["valid"],
+                            max_points=4096)
+    assert icp_cuda.launches() == 1
+    inputs = viz.snapshot_inputs(s, scan["points"], scan["valid"], 4096)
+    ref = geo.linearize_with(*inputs, s.geo_cfg, s.window.g_dir)
+    _assert_close(snap["icp"], ref)
+    inl = snap["inlier"]
+    assert snap["num_inlier"] == int(inl.sum()) > 50
+    assert np.allclose(np.linalg.norm(snap["normal"][inl], axis=-1), 1.0,
+                       atol=1e-3)
+    seg = np.linalg.norm(snap["p_w"][inl] - snap["foot"][inl], axis=-1)
+    assert np.median(seg) < 0.1
+
+
+def test_debug_stream_reads_each_sequencers_own_state(room, tmp_path):
+    """Two Sequencers through one step cache, fed in turns, each with a
+    stream of every scan: each stream's lines are those of the same run
+    through a cache of its own (a stream reads its Sequencer's state, not
+    the shared graphs' buffers)."""
+    import json
+
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.io import viz
+
+    datas = [room, syn.generate(syn.room_world(), syn.TrajectoryConfig(
+        t_total=3.0), syn.LidarModel(), seed=1)]
+
+    def run(seqs, tag, turns):
+        streams = [viz.DebugStream(str(tmp_path / f"{tag}{j}.jsonl"), 1)
+                   for j in range(2)]
+        imu = [0, 0]
+        order = [(k, j) for k in range(max(len(d["scans"]) for d in datas))
+                 for j in range(2)] if turns else \
+            [(k, j) for j in range(2) for k in range(len(datas[j]["scans"]))]
+        for k, j in order:
+            if k < len(datas[j]["scans"]):
+                imu[j] = _feed(seqs[j], datas[j], [k], imu[j])
+                streams[j].emit(seqs[j])
+        for st in streams:
+            st.close()
+        return [[json.loads(ln) for ln in open(st.path)] for st in streams]
+
+    cache = {}
+    shared = run([_room_sequencer(False, step_cache=cache)
+                  for _ in datas], "shared", turns=True)
+    alone = run([_room_sequencer(False) for _ in datas], "alone",
+                turns=False)
+    assert shared == alone and all(len(x) > 10 for x in shared)
+
+
+def _ouster_room():
+    """The staggered 16x256 room of tests/test_torch_ouster.py in the Ouster
+    sensor frame, and its exact-Ouster photometric Sequencer settings."""
+    from mimosa_tpu_torch.io import synthetic as syn
+    from mimosa_tpu_torch.lidar import photometric as ph
+
+    rows, cols = 16, 256
+    alts = np.radians(np.linspace(22.0, -22.0, rows))
+    shifts = np.random.default_rng(3).integers(0, cols, rows)
+    data, q_b_l = syn.ouster_sensor_frame(syn.generate_ouster(
+        syn.room_world(), syn.TrajectoryConfig(t_total=2.0), alts, shifts,
+        n_cols=cols, seed=0))
+    pc = ph.PhotometricConfig(
+        rows=rows, cols=cols, range_min=0.5, range_max=40.0,
+        beam_altitudes=tuple(float(a) for a in alts),
+        gradient_threshold=2.0, nma_radius=5, num_features=32, margin=3,
+        intensity_scale=1.0, filter_brightness=False, remove_lines=False,
+        exact_ouster=True, pixel_shift_by_row=tuple(int(s) for s in shifts))
+    return data, pc, q_b_l
+
+
+def test_exact_ouster_bulk_equals_merged_streaming_on_the_card(dev):
+    """The exact-Ouster photometric Sequencer, captured: add_scans_bulk
+    against merged streaming gives the same bits and the same slot 12,
+    which tracks on every step after the second."""
+    from mimosa_tpu_torch.graph import sequencer as seq
+    from mimosa_tpu_torch.graph import window as win
+
+    data, pc, q_b_l = _ouster_room()
+
+    def make(**kw):
+        return seq.Sequencer(
+            seq.SequencerConfig(max_scan_points=pc.rows * pc.cols,
+                                n_geo_points=2048, n_map_points=4096,
+                                geo_leaf=0.4, map_insert_leaf=0.15,
+                                keyframe_trans_thresh=0.3,
+                                keyframe_rot_thresh=0.15, n_gn_iters=2,
+                                q_b_l=q_b_l, **kw),
+            win.WindowConfig(K=4),
+            vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=14,
+                              plane_min_points=5, lru_horizon=0),
+            geo.GeometricConfig(), pc, device="cuda")
+
+    b = make()
+    imu = data["imu"]
+    b.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    b.add_scans_bulk(data["scans"], chunk=4)
+    s = make(merge_marginalize=True)
+    s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    for sc in data["scans"]:
+        s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"], sc["valid"],
+                   intensity=sc["intensity"])
+    torch.cuda.synchronize()
+    assert b.bulk_counts["in_chunks"] > 0
+    _assert_bulk_bitwise(b, s)
+    db, ds = b.debug_records(), s.debug_records()
+    np.testing.assert_array_equal(db[:, 12], ds[:, 12])
+    assert (ds[2:, 12] > 0).all(), ds[:, 12]

@@ -78,6 +78,27 @@ def test_preintegrate_matches_jax(oracle):
         _close(getattr(out, name).numpy(), getattr(ref, name))
 
 
+@pytest.mark.parametrize("oracle", ["jax_sequential", "port_preintegrate"])
+def test_preintegrate_sequential_matches(oracle):
+    """The port's sequential oracle against the JAX package's and against
+    the port's own prefix composition, on the same padded segment."""
+    j, t = _both(_segment(seed=4))
+    out = tpre.preintegrate_sequential(t["accs"], t["gyros"], t["dts"],
+                                       t["bg"], t["ba"], valid=t["valid"],
+                                       **ARGS)
+    if oracle == "jax_sequential":
+        ref = J_PRE["preintegrate_sequential"](
+            j["accs"], j["gyros"], j["dts"], j["bg"], j["ba"],
+            valid=j["valid"], **ARGS)
+        ref = [np.asarray(getattr(ref, n)) for n in tpre.PreintState._fields]
+    else:
+        ref = [v.numpy() for v in tpre.preintegrate(
+            t["accs"], t["gyros"], t["dts"], t["bg"], t["ba"],
+            valid=t["valid"], **ARGS)]
+    for name, r in zip(tpre.PreintState._fields, ref):
+        _close(getattr(out, name).numpy(), r)
+
+
 def test_preintegrate_prefixes_match_jax():
     j, t = _both(_segment(seed=1, n=40, n_valid=40))
     ref = J_PRE["preintegrate"](j["accs"], j["gyros"], j["dts"], j["bg"],

@@ -4,7 +4,8 @@
 * ``tests/test_online.py``'s cases on the port: the threaded estimator gives
   the offline loop's trajectory (the same timestamps, positions within
   1e-6 m), backpressure drops, a bad event leaves the worker alive, and
-  staging on the worker thread;
+  staging on the worker thread, with a debug stream emitted on the
+  worker;
 * the port's online trajectory against the JAX package's
   ``OnlineEstimator`` on the same pushes: the same state times, both ATEs
   under 0.08 m and within 5 mm of each other (the estimator is chaotic
@@ -19,6 +20,7 @@ in one fixture that one test uses.
 """
 
 import gc
+import json
 import logging
 
 import jax
@@ -37,6 +39,7 @@ from mimosa_tpu_torch.graph import window as twin
 from mimosa_tpu_torch.io import online as tonline
 from mimosa_tpu_torch.io import synthetic as tsyn
 from mimosa_tpu_torch.io import synthetic_replay as trep
+from mimosa_tpu_torch.io.viz import DebugStream
 from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.utils import checkpoint as ckpt
@@ -235,13 +238,16 @@ def test_online_worker_survives_bad_event(caplog):
     assert "imu event failed" in caplog.records[0].getMessage()
 
 
-def test_online_worker_staging(data, offline):
+def test_online_worker_staging(data, offline, tmp_path):
     """stage_on_push=False stages on the worker thread; the trajectory
-    equals the offline loop's."""
+    equals the offline loop's. A debug stream of every scan, emitted on
+    the worker after each scan, gives one line per scan step, each the
+    offline loop's state after that scan."""
     # no collection slack: each scan runs as soon as it is pushed, after
     # the IMU the offline loop feeds before it
+    stream = DebugStream(str(tmp_path / "online.jsonl"), every=1)
     est = tonline.OnlineEstimator(_port_sequencer(), max_pending_scans=10_000,
-                                  stage_on_push=False)
+                                  stage_on_push=False, debug_stream=stream)
     imu, ii = data["imu"], 0
     for scan in data["scans"]:
         t_end = scan["ts_header"] + scan["t_rel"].max()
@@ -258,10 +264,22 @@ def test_online_worker_staging(data, offline):
     t_r, p_r = _traj(offline)
     np.testing.assert_array_equal(t_w, t_r)
     np.testing.assert_allclose(p_w, p_r, atol=1e-6)
+    stream.close()
+    lines = [json.loads(ln) for ln in open(stream.path)]
+    assert [ln["scan"] for ln in lines] == \
+        list(range(1, offline.scan_idx + 1))
+    rec = offline.debug_records()
+    for ln in lines:
+        k = int(np.flatnonzero(t_r == ln["ts"])[0])
+        np.testing.assert_allclose(ln["p"], p_r[k], rtol=0, atol=5.01e-5)
+        assert ln["icp_inliers"] == int(rec[ln["scan"] - 1, 0])
+    assert lines[-1]["counters"] == offline.counters
 
 
 def test_online_refuses_the_debug_stream():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """A debug stream that is not one is refused; a DebugStream is taken
+    (test_online_worker_staging)."""
+    with pytest.raises(TypeError, match="DebugStream"):
         tonline.OnlineEstimator(_port_sequencer(), debug_stream=object())
 
 

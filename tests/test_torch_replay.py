@@ -23,7 +23,10 @@
   and writes what it gives, and ``--two-pass --smooth`` on the bag calls
   ``replay_bag`` as the in-process refinement does and writes its TUM
   file;
-* the options not ported yet, and the missing card, raise.
+* the debug stream (``--debug-stream``, ``--stream-every``): one line per
+  scan at a cadence of 1 in the streamed CLI run, forced after each bulk
+  flush in the bulk one, each line the run's pose rows and debug records;
+* a debug stream that is not one, and the missing card, raise.
 
 The JAX side runs once, in one fixture that one test uses. It takes most
 of this module's time: the JAX package compiles its scan, radar and
@@ -54,6 +57,7 @@ from mimosa_tpu_torch.io import replay as treplay
 from mimosa_tpu_torch.io import rosbag as tbag
 from mimosa_tpu_torch.io import rosbag_writer as tw
 from mimosa_tpu_torch.io import synthetic as tsyn
+from mimosa_tpu_torch.io.viz import DebugStream
 from mimosa_tpu_torch.utils import evaluation as tev
 from test_bag_replay_cli import SYN_PARAMS
 
@@ -184,8 +188,11 @@ def _assert_cli_call(run, bag, **kw):
 
 @pytest.fixture(scope="module")
 def port_cli(bag):
-    """The bag streamed through the CLI, with ``--gt``."""
-    return _cli(bag, "cli.tum", TOPIC_FLAGS + ["--gt", bag["gt"]])
+    """The bag streamed through the CLI, with ``--gt`` and a debug stream
+    of every scan."""
+    return _cli(bag, "cli.tum", TOPIC_FLAGS + [
+        "--gt", bag["gt"], "--debug-stream", str(bag["dir"] / "cli.jsonl"),
+        "--stream-every", "1"])
 
 
 @pytest.fixture(scope="module")
@@ -229,7 +236,9 @@ def test_replay_matches_jax(bag, port_run):
 def test_cli_writes_the_replay_tum(bag, port_cli):
     """The CLI calls ``replay_bag`` as the in-process replay does, writes
     the TUM file of the replay it ran and prints its ATE."""
-    _assert_cli_call(port_cli, bag, **KW)
+    stream = port_cli["call"]["debug_stream"]
+    assert isinstance(stream, DebugStream) and stream.every == 1
+    _assert_cli_call(port_cli, bag, debug_stream=stream, **KW)
     out, port_run = port_cli["out"], port_cli["s"]
     ref = bag["dir"] / "inproc.tum"
     port_run.write_tum(str(ref))
@@ -239,6 +248,65 @@ def test_cli_writes_the_replay_tum(bag, port_cli):
     line = [ln for ln in port_cli["printed"].splitlines()
             if ln.startswith("ATE:")]
     assert line == [f"ATE: {_ate(port_run, bag):.4f} m  RTE: nan %"]
+
+
+def _stream_lines(path):
+    return [json.loads(ln) for ln in open(path)]
+
+
+def _assert_lines_are_the_run(lines, s, tum):
+    """Each debug line is Sequencer ``s``'s state after that scan: its pose
+    the TUM row of its time, at the line's rounding, its ICP and
+    photometric slots the run's debug record, its counters a prefix of the
+    run's (only the scan count and what came after may have grown)."""
+    ts, p, q = tev.load_tum(str(tum))
+    rec = s.debug_records()
+    for ln in lines:
+        k = int(np.argmin(np.abs(ts - ln["ts"])))
+        assert abs(ts[k] - ln["ts"]) < 1e-6
+        # at the line's rounding (half a unit of its last decimal; the TUM
+        # text holds the f32 value's shortest repr)
+        np.testing.assert_allclose(ln["p"], p[k], rtol=0, atol=5.01e-5)
+        np.testing.assert_allclose(ln["q_wxyz"], q[k], rtol=0, atol=5.01e-7)
+        r = rec[ln["scan"] - 1]
+        assert ln["icp_inliers"] == int(r[0])
+        assert ln["icp_status"] == [int(v) for v in r[1:5]]
+        assert ln["degen_rot"] == [bool(v > 0.5) for v in r[6:9]]
+        assert ln["degen_trans"] == [bool(v > 0.5) for v in r[9:12]]
+        assert ln["photo_tracked"] == int(r[12])
+        assert ln["counters"]["scans"] <= s.counters["scans"]
+
+
+def test_cli_writes_the_debug_stream(bag, port_cli):
+    """``--debug-stream --stream-every 1`` on the streamed replay: one
+    line per scan step, in order, each the run's state after that scan;
+    the last line's scan counters are the run's final ones (radar frames
+    and odometry messages after the last scan count on), and the CLI
+    prints the line count."""
+    s = port_cli["s"]
+    lines = _stream_lines(bag["dir"] / "cli.jsonl")
+    assert [ln["scan"] for ln in lines] == list(range(1, s.scan_idx + 1))
+    _assert_lines_are_the_run(lines, s, port_cli["out"])
+    last = lines[-1]["counters"]
+    # radar frames and odometry messages after the last scan count on
+    assert set(last) <= set(s.counters)
+    assert {k: v for k, v in last.items() if k.startswith("scans")} == \
+        {k: v for k, v in s.counters.items() if k.startswith("scans")}
+    assert f"({len(lines)} lines)" in port_cli["printed"]
+
+
+def test_cli_bulk_writes_the_debug_stream(bag, bulk_runs):
+    """``--bulk --debug-stream`` (cadence 10): a line forced after each
+    flush of the bulk batch and at the end, and on the cadence after a
+    streamed event; the scans strictly increase to the last, and each line
+    is the run's state after its scan."""
+    b = bulk_runs["bulk"]
+    lines = _stream_lines(bag["dir"] / "cli_bulk.jsonl")
+    scans = [ln["scan"] for ln in lines]
+    assert len(lines) >= 2 and scans == sorted(set(scans))
+    assert scans[-1] == b.scan_idx
+    assert any(k % 10 for k in scans[:-1])       # a forced flush line
+    _assert_lines_are_the_run(lines, b, bulk_runs["cli"]["out"])
 
 
 BULK_CHUNK = 8          # the bag's eligible runs are shorter than 32
@@ -255,7 +323,8 @@ def bulk_runs(bag):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        cli = _cli(bag, "cli_bulk.tum", TOPIC_FLAGS + ["--bulk"],
+        cli = _cli(bag, "cli_bulk.tum", TOPIC_FLAGS + [
+            "--bulk", "--debug-stream", str(bag["dir"] / "cli_bulk.jsonl")],
                    functools.partial(treplay.replay_bag,
                                      bulk_chunk=BULK_CHUNK))
         return dict(
@@ -292,7 +361,9 @@ def test_cli_bulk_writes_the_bulk_replay_tum(bag, bulk_runs):
     replay does (``bulk=True``; the chunk size is set to BULK_CHUNK by the
     function the CLI was given) and writes the TUM file of its run."""
     cli = bulk_runs["cli"]
-    _assert_cli_call(cli, bag, bulk=True, **KW)
+    stream = cli["call"]["debug_stream"]
+    assert isinstance(stream, DebugStream) and stream.every == 10
+    _assert_cli_call(cli, bag, bulk=True, debug_stream=stream, **KW)
     ref = bag["dir"] / "inproc_bulk.tum"
     bulk_runs["bulk"].write_tum(str(ref))
     assert cli["out"].read_text() == ref.read_text()
@@ -497,22 +568,42 @@ def test_cli_two_pass_smooth_writes_the_replay_tum(bag, refined_cli):
     assert f"ATE: {_ate(refined, bag):.4f} m" in printed
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(debug_stream=object()), 15)], ids=["debug_stream"])
-def test_replay_refuses_what_is_not_ported(option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+@pytest.mark.parametrize("option", [dict(debug_stream=object())],
+                         ids=["debug_stream"])
+def test_replay_refuses_what_is_not_ported(option):
+    """Every replay option of the JAX package is ported; a debug stream
+    that is not one is refused before the bag is read."""
+    assert not hasattr(treplay, "NOT_PORTED")
+    with pytest.raises(TypeError, match="DebugStream"):
         treplay.replay_bag("absent.bag", "absent.yaml", "/imu", "/points",
                            device="cpu", **option)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--debug-stream", "x.jsonl"], 15), (["--stream-every", "5"], 15)],
+@pytest.mark.parametrize("flags,every", [
+    (["--debug-stream", "x.jsonl"], 10),
+    (["--debug-stream", "x.jsonl", "--stream-every", "5"], 5)],
     ids=["debug_stream", "stream_every"])
-def test_cli_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+def test_cli_refuses_what_is_not_ported(flags, every, tmp_path, monkeypatch):
+    """The CLI refuses none of the JAX package's flags: ``--debug-stream``
+    and ``--stream-every`` reach ``replay_bag`` as a DebugStream on that
+    file at that cadence (10 by default), closed when the replay ends, here
+    by the missing bag's error."""
+    calls = []
+
+    def fake_replay_bag(*args, **kw):
+        calls.append(kw["debug_stream"])
+        raise FileNotFoundError("absent.bag")
+
+    monkeypatch.setattr(treplay, "replay_bag", fake_replay_bag)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError):
         treplay.main(["--bag", "absent.bag", "--config", "absent.yaml",
                       "--imu-topic", "/imu", "--lidar-topic", "/points",
                       "--device", "cpu"] + flags)
+    (stream,) = calls
+    assert isinstance(stream, DebugStream) and stream.every == every
+    assert stream.path == "x.jsonl" and stream._f.closed
+    assert (tmp_path / "x.jsonl").read_text() == ""
 
 
 def test_replay_needs_a_card_unless_asked_for_the_cpu(bag, monkeypatch):

@@ -257,6 +257,8 @@ def test_short_replay_ate_matches_jax(jax_replay):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
+        # matplotlib unimportable: only the render calls of io.viz need it
+        "sys.modules['matplotlib'] = None\n"
         "import mimosa_tpu_torch as m\n"
         "names = [i.name for i in pkgutil.walk_packages(m.__path__, "
         "'mimosa_tpu_torch.')]\n"
@@ -275,12 +277,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'_run_bulk_chunk_mm', '_pack_scan_row'):\n"
         "    assert callable(getattr(Sequencer, f)), f\n"
         "from mimosa_tpu_torch.io import replay, synthetic_replay\n"
-        "assert 'bulk' not in replay.NOT_PORTED\n"
+        "import inspect\n"
+        # every replay option is ported: the debug stream last
+        "assert not hasattr(replay, 'NOT_PORTED')\n"
+        "assert {'bulk', 'two_pass', 'smooth', 'debug_stream'} <= set("
+        "inspect.signature(replay.replay_bag).parameters)\n"
+        "for n in ('io.viz',):\n"
+        "    assert 'mimosa_tpu_torch.' + n in names, names\n"
+        "from mimosa_tpu_torch.io import viz\n"
+        "for f in ('DebugStream', 'icp_snapshot', 'render_correspondences', "
+        "'render_feature_overlay', 'feature_overlay_arrays'):\n"
+        "    assert callable(getattr(viz, f)), f\n"
+        "from mimosa_tpu_torch.io.synthetic import generate_ouster\n"
+        "from mimosa_tpu_torch.lidar.geometric import linearize_binary\n"
         # the offline refinement (item 13)
         "for n in ('graph.refine', 'parallel.window_shard'):\n"
         "    assert 'mimosa_tpu_torch.' + n in names, names\n"
-        "assert not {'two_pass', 'smooth'} & set(replay.NOT_PORTED)\n"
-        "import inspect\n"
         "assert {'two_pass', 'smooth'} <= set(inspect.signature("
         "synthetic_replay.run).parameters)\n"
         "assert 'init_map' in inspect.signature(Sequencer).parameters\n"
@@ -293,6 +305,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert callable(synthetic_replay.bulk_stream)\n"
         "assert len(names) > 12, names\n"
         "assert not bad, bad\n"
+        "assert sys.modules['matplotlib'] is None\n"
         # PyYAML only inside config.loader.load_reference_yaml
         "assert 'yaml' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
