@@ -13,12 +13,10 @@ H, b and the mean |r| to 1e-9 of scale, the status counts exact.
 """
 
 import dataclasses
-import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from mimosa_tpu.core import lie as jlie
@@ -28,19 +26,12 @@ from mimosa_tpu_torch.core import lie
 from mimosa_tpu_torch.lidar import geometric as geo
 from mimosa_tpu_torch.mapping import voxel_hash as vh
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 MAP_CFG = vh.VoxelMapConfig(leaf_size=0.4, capacity_log2=16,
                             plane_min_points=5, neighbor_voxel_mode=7)
 CFG = geo.GeometricConfig(loc_count_thresh=30.0)
 F64_TOL = 1e-9         # of scale: the two packages' f64 rounding
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def make_room(seed=0, n_per=5000, noise=0.003):

@@ -26,9 +26,9 @@ Bulk changes scheduling, not arithmetic, so:
   own ``add_bulk`` compiles its multimodal chunk program for minutes on
   a CPU.
 
-Every case asserts that at least one chunk ran. The module runs its torch
-work on one intra-op thread: the CPU's bits depend on how a reduction is
-split, and the comparisons here are bitwise.
+Every case asserts that at least one chunk ran. The torch work runs on
+one intra-op thread (``torch_fixtures``): the CPU's bits depend on how a
+reduction is split, and the comparisons here are bitwise.
 
 The JAX reference's run, almost all of it XLA's compile of five step
 programs, goes on a thread of its own (``jax_mm``). Run without xdist, a
@@ -38,14 +38,12 @@ whether it will run the JAX case, starts it only for that case.
 """
 
 import concurrent.futures
-import gc
 import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from mimosa_tpu.graph import sequencer as jseq
 from mimosa_tpu.graph import window as jwin
@@ -61,6 +59,7 @@ from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
 import test_bulk_fuzz
 import test_bulk_strict
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
 
 SCAN_GAP = 2e-3          # [m] test_bulk.py's scan-only tolerance
 MIXED_GAP = 5e-3         # [m] test_bulk.py's mixed-chunk tolerance
@@ -68,19 +67,6 @@ STRICT_GAP = test_bulk_strict.STRICT_DP_GATE_M
 CHUNK = 8
 LM = tsyn.LidarModel(n_rows=16, n_cols=256)
 FUZZ_SEEDS = (8, 9, 11)   # duplicates; radar, D-optimality; lag
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread_and_free_programs():
-    """One intra-op thread for the module's torch work, then the XLA:CPU
-    programs this module compiled freed (the reason is in
-    test_torch_core.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-    jax.clear_caches()
-    gc.collect()
 
 
 SEQ_KW = dict(max_scan_points=4096, n_geo_points=2048, n_map_points=4096,

@@ -4,8 +4,6 @@ The same seeded numpy f32 inputs go through both; outputs must agree to
 atol 1e-6 / rtol 1e-5 (f32 rounding of the same formulas).
 """
 
-import gc
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,21 +15,10 @@ from mimosa_tpu.core import lie as jlie
 from mimosa_tpu_torch.core import eigh3 as teig
 from mimosa_tpu_torch.core import lie as tlie
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 ATOL, RTOL = 1e-6, 1e-5
 N = 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled once it is done. A
-    process keeps the code of every compiled program mapped until the
-    caches are cleared, and a long-lived test process that has compiled
-    many reaches the kernel's limit on memory maps (vm.max_map_count) and
-    aborts in its next compile. Every test_torch_* module that calls JAX
-    does the same."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _inputs(seed=0):

@@ -10,9 +10,6 @@ package's.
   cases' own checks on the port.
 """
 
-import gc
-
-import jax
 import numpy as np
 import pytest
 
@@ -21,16 +18,9 @@ from mimosa_tpu.utils import evaluation as jev
 from mimosa_tpu_torch.imu import propagation as tprop
 from mimosa_tpu_torch.utils import evaluation as tev
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 TOL = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _trajectories(seed, n=400, length=30.0):

@@ -5,8 +5,6 @@ an absolute floor of 1e-4 x the field's largest magnitude (fields such as
 the covariance span many decades; their near-zero entries are rounding).
 """
 
-import gc
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,16 +14,10 @@ import torch
 from mimosa_tpu.imu import preintegration as jpre
 from mimosa_tpu_torch.imu import preintegration as tpre
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 RTOL = 1e-4
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 # the JAX references run jitted: eager dispatch compiles op by op
 _STATIC = ("acc_var", "gyro_var", "int_var")

@@ -18,11 +18,9 @@
 
 import copy
 import dataclasses
-import gc
 import json
 import math
 
-import jax
 import numpy as np
 import pytest
 import yaml
@@ -39,15 +37,7 @@ from mimosa_tpu_torch.io import rosbag as tbag
 from mimosa_tpu_torch.io import rosbag_writer as tw
 from mimosa_tpu_torch.io import synthetic as tsyn
 from test_bag_replay_cli import SYN_PARAMS
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
 
 
 def _equal(a, b, path="msg"):

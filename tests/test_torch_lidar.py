@@ -8,7 +8,6 @@ The kernel itself runs only on the card: ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
-import gc
 import re
 
 import jax
@@ -28,6 +27,8 @@ from mimosa_tpu_torch.lidar.downsample import voxel_downsample as t_downsample
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.ops import icp_cuda
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 J_MAP_CFG = jvh.VoxelMapConfig(leaf_size=0.4, capacity_log2=14,
                                plane_min_points=5, lru_horizon=3)
 T_MAP_CFG = tvh.VoxelMapConfig(**dataclasses.asdict(J_MAP_CFG))
@@ -37,15 +38,6 @@ j_update_planes = jax.jit(jvh.update_planes, static_argnames=("cfg",))
 j_update_planes_at = jax.jit(jvh.update_planes_at, static_argnames=("cfg",))
 j_match = jax.jit(jgeo.match, static_argnames=("map_cfg",))
 j_linearize_with = jax.jit(jgeo.linearize_with, static_argnames=("cfg",))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _t(x):

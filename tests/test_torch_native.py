@@ -15,10 +15,8 @@
 the card's machine too.)
 """
 
-import gc
 import itertools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,16 +29,9 @@ from mimosa_tpu_torch.graph import sequencer as tseq
 from mimosa_tpu_torch.io import synthetic as tsyn
 from mimosa_tpu_torch.lidar import photometric as tph
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 RES = dict(pos=0.0025, rng=0.0015, t=4e-6, inten=0.25)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _inputs(seed, dtype, n=257):

@@ -19,15 +19,12 @@ The sequence is the 3 s room from a 16x256 LiDAR; the JAX side runs once,
 in one fixture that one test uses.
 """
 
-import gc
 import json
 import logging
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from mimosa_tpu.graph import sequencer as jseq
 from mimosa_tpu.graph import window as jwin
@@ -44,29 +41,10 @@ from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.utils import checkpoint as ckpt
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 ATE_GATE = 0.08        # tests/test_online.py's sequence gate (room_noisy)
 ATE_PAIR = 0.005       # [m] the two packages' ATEs apart
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _explicit_thread_count():
-    """Set the CPU's intra-op thread count explicitly, so the estimator's
-    worker thread takes the count of the thread that runs the offline loop:
-    a thread that never set it takes the math libraries' defaults, whose
-    reductions split (and round) differently, 1.7e-4 m apart after 4 s of
-    this chaotic estimator, where the same count gives the same bits."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(n)
-    yield
 
 
 SEQ_KW = dict(max_scan_points=4096, n_geo_points=4096, n_map_points=8192,
@@ -137,7 +115,7 @@ def _online(estimator_cls, seq, data):
         else:
             assert est.push_scan(x["ts_header"], x["points"], x["t_rel"],
                                  x["valid"])
-            assert est.flush(timeout=300.0)
+            assert est.flush(timeout=120.0)
     return est, prop_out, states
 
 
@@ -227,11 +205,11 @@ def test_online_worker_survives_bad_event(caplog):
     est = tonline.OnlineEstimator(_port_sequencer())
     with caplog.at_level(logging.ERROR, logger="mimosa_tpu_torch.io.online"):
         est.push_odometry(1.0, np.zeros(3), np.zeros(4))  # q/t swapped
-        assert est.flush(timeout=30.0)
+        assert est.flush(timeout=5.0)
         assert est._worker.is_alive()
         assert not caplog.records      # dropped: not initialized yet
         est.push_imu(1.0, np.zeros(2), np.zeros(3))       # a 2-vector acc
-        assert est.flush(timeout=30.0)
+        assert est.flush(timeout=5.0)
     assert est._worker.is_alive()
     est.stop(drain=True)
     assert [r.levelno for r in caplog.records] == [logging.ERROR]

@@ -30,7 +30,6 @@ production.
 """
 
 import copy
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -52,14 +51,7 @@ from mimosa_tpu_torch.io import synthetic_replay as trep
 from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
+from torch_fixtures import build_once, one_thread_then_free_programs  # noqa: F401
 
 
 def _jax(fn, *args, **kw):
@@ -246,10 +238,15 @@ def _kind(event, before, s):
 
 
 @pytest.fixture(scope="module")
-def jax_stream():
+def jax_stream(tmp_path_factory):
     """The stream through the JAX package, with the state before and after
     the first event of each of ``KINDS`` (a slide of a full window
     included where the event made one)."""
+    return build_once(tmp_path_factory, "test_torch_ooo.jax_stream",
+                      _jax_stream)
+
+
+def _jax_stream():
     data, events = _stream()
     snaps = {}
     with jax.enable_x64(False):

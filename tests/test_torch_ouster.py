@@ -21,12 +21,8 @@ CPU.
   spirit and the CPU's reductions split by thread count.
 """
 
-import gc
-
-import jax
 import numpy as np
 import pytest
-import torch
 
 from mimosa_tpu.io import synthetic as jsyn
 from mimosa_tpu_torch.config import loader as tload
@@ -37,16 +33,9 @@ from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.lidar import photometric as tph
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 BULK_GAP = 1e-6          # [m] bulk against merged streaming
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _table(rows, cols, seed):
@@ -174,23 +163,18 @@ def _sequencer(pc, q_b_l, **kw):
 
 def test_exact_ouster_bulk_matches_merged_streaming():
     data, pc, q_b_l = exact_ouster_room()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        runs = []
-        for bulk in (True, False):
-            s = _sequencer(pc, q_b_l, merge_marginalize=True)
-            imu = data["imu"]
-            s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
-            if bulk:
-                s.add_scans_bulk(data["scans"], chunk=4)
-            else:
-                for sc in data["scans"]:
-                    s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
-                               sc["valid"], intensity=sc["intensity"])
-            runs.append(s)
-    finally:
-        torch.set_num_threads(n)
+    runs = []
+    for bulk in (True, False):
+        s = _sequencer(pc, q_b_l, merge_marginalize=True)
+        imu = data["imu"]
+        s.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+        if bulk:
+            s.add_scans_bulk(data["scans"], chunk=4)
+        else:
+            for sc in data["scans"]:
+                s.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                           sc["valid"], intensity=sc["intensity"])
+        runs.append(s)
     b, s = runs
     assert b.bulk_counts["in_chunks"] > 0
     assert b.counters == s.counters and b._traj_ts == s._traj_ts

@@ -27,7 +27,6 @@ psi within 1e-5, validity, lives and debug slots 12-15 exact.
 
 import copy
 import dataclasses
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -50,14 +49,7 @@ from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.lidar import photometric as tph
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
+from torch_fixtures import build_once, one_thread_then_free_programs  # noqa: F401
 
 
 PX_TOL = 1e-4        # projected pixel coordinates [px]
@@ -557,10 +549,16 @@ def _jax_state(s):
 
 
 @pytest.fixture(scope="module")
-def jax_photo_replay():
+def jax_photo_replay(tmp_path_factory):
     """A short noisy 16x256 room replay through the JAX package with the
     photometric factor (the room_photometric settings, int16 codec), with
     its state before and after the (N_CARRY+1)-th scan."""
+    return build_once(tmp_path_factory,
+                      "test_torch_photometric.jax_photo_replay",
+                      _jax_photo_replay)
+
+
+def _jax_photo_replay():
     data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
         t_total=2.0), tsyn.LidarModel(**LIDAR), seed=0, imu_noise=0.01,
         range_noise=0.01)

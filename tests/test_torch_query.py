@@ -16,9 +16,7 @@
 """
 
 import copy
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +33,8 @@ from mimosa_tpu_torch.io import synthetic_replay as trep
 from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
+from torch_fixtures import build_once, one_thread_then_free_programs  # noqa: F401
+
 SEQ_KW = dict(max_scan_points=1024, n_geo_points=1024, n_map_points=2048,
               geo_leaf=0.4, map_insert_leaf=0.15, keyframe_trans_thresh=0.3,
               keyframe_rot_thresh=0.15, n_gn_iters=2)
@@ -44,15 +44,6 @@ MAP_KW = dict(leaf_size=1.0, capacity_log2=13, plane_min_points=5,
               lru_horizon=0)
 GEO_KW = dict(sigma=0.05, loc_count_thresh=50.0)
 LIDAR = dict(n_rows=8, n_cols=128)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _data(t_total=2.5, seed=0, **noise):
@@ -75,27 +66,24 @@ def _port_run(data, seq=None, geo=None):
 
 
 @pytest.fixture(scope="module")
-def jax_run():
-    """The JAX package's Sequencer after the short room replay."""
-    data = _data()
+def data():
+    return _data()
+
+
+@pytest.fixture(scope="module")
+def jax_run(data, tmp_path_factory):
+    """The JAX package's Sequencer after the short room replay: its state
+    (convert's layout) and its answers to every query."""
+    return build_once(tmp_path_factory, "test_torch_query.jax_run",
+                      lambda: _jax_run(data))
+
+
+def _jax_run(data):
     s = jseq.Sequencer(jseq.SequencerConfig(**SEQ_KW),
                        jwin.WindowConfig(**WIN_KW),
                        jvh.VoxelMapConfig(**MAP_KW),
                        jgeo.GeometricConfig(**GEO_KW), dtype=jnp.float32)
     trep.replay(s, data)
-    return s, data
-
-
-@pytest.fixture(scope="module")
-def port_run(jax_run):
-    """The port after the same replay."""
-    return _port_run(jax_run[1]), jax_run[1]
-
-
-@pytest.fixture(scope="module")
-def port_loaded(jax_run):
-    """The port holding the JAX Sequencer's final state."""
-    s = jax_run[0]
     st = {name: {k: np.asarray(v) for k, v in getattr(s, name)._asdict()
                  .items()} for name in ("window", "vmap", "preints")}
     st.update({name: np.asarray(getattr(s, name))
@@ -103,7 +91,19 @@ def port_loaded(jax_run):
     st["host"] = {k: copy.deepcopy(getattr(s, k)) for k in convert.SEQ_HOST}
     st["imu"] = dict(ts=s.imu.ts.copy(), acc=s.imu.acc.copy(),
                      gyro=s.imu.gyro.copy())
-    return convert.load_sequencer_state(_port(), st)
+    return dict(state=st, queries=_queries(s))
+
+
+@pytest.fixture(scope="module")
+def port_run(data):
+    """The port after the same replay."""
+    return _port_run(data), data
+
+
+@pytest.fixture(scope="module")
+def port_loaded(jax_run):
+    """The port holding the JAX Sequencer's final state."""
+    return convert.load_sequencer_state(_port(), jax_run["state"])
 
 
 def _queries(s):
@@ -145,7 +145,7 @@ QUERIES = ("current_state", "optimized_values", "state_upto", "pose_at",
 
 @pytest.fixture(scope="module")
 def answers(jax_run, port_loaded, port_run):
-    return dict(jax=_queries(jax_run[0]), loaded=_queries(port_loaded),
+    return dict(jax=jax_run["queries"], loaded=_queries(port_loaded),
                 replay=_queries(port_run[0]))
 
 

@@ -24,8 +24,6 @@ The JAX functions run jitted with 64-bit types off, as the JAX package
 runs in production.
 """
 
-import gc
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,14 +44,7 @@ from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.odometry import factor as todo
 from mimosa_tpu_torch.radar import factor as trad
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
 
 
 def _jax(fn, *args, static=()):

@@ -12,10 +12,8 @@ another order); the port's smoother moves the noisy positions toward the
 truth.
 """
 
-import gc
 import types
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,16 +28,9 @@ from mimosa_tpu_torch.graph import sequencer as tseq
 from mimosa_tpu_torch.graph import window as twin
 from mimosa_tpu_torch.io import synthetic as tsyn
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 TOL = {"float64": 1e-9, "float32": 1e-5}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")

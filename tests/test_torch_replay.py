@@ -39,12 +39,10 @@ the arguments it passed, against that run.
 import contextlib
 import copy
 import dataclasses
-import gc
 import inspect
 import io
 import json
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -60,18 +58,10 @@ from mimosa_tpu_torch.io import synthetic as tsyn
 from mimosa_tpu_torch.io.viz import DebugStream
 from mimosa_tpu_torch.utils import evaluation as tev
 from test_bag_replay_cli import SYN_PARAMS
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
 
 ATE_GATE = 0.08        # tests/test_bag_replay_cli.py's gate
 ATE_PAIR = 0.005       # [m] the two packages' ATEs apart
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _write_bag(path, data, radar, odom):
@@ -316,24 +306,18 @@ BULK_CHUNK = 8          # the bag's eligible runs are shorter than 32
 def bulk_runs(bag):
     """The bag through the CLI's ``--bulk`` (``replay_bag(bulk=True)``) in
     chunks of BULK_CHUNK events, and through replay_bag streamed with the
-    merged slide, on one intra-op thread (the CPU's bits depend on how a
-    reduction is split, and these runs are compared bit for bit)."""
+    merged slide, on the module's one intra-op thread (``torch_fixtures``;
+    these runs are compared bit for bit)."""
     import functools
 
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cli = _cli(bag, "cli_bulk.tum", TOPIC_FLAGS + [
-            "--bulk", "--debug-stream", str(bag["dir"] / "cli_bulk.jsonl")],
-                   functools.partial(treplay.replay_bag,
-                                     bulk_chunk=BULK_CHUNK))
-        return dict(
-            cli=cli, bulk=cli["s"],
-            merged=treplay.replay_bag(bag["bag"], bag["cfg"], "/imu",
-                                      "/points", device="cpu",
-                                      merge_marginalize=True, **KW))
-    finally:
-        torch.set_num_threads(n)
+    cli = _cli(bag, "cli_bulk.tum", TOPIC_FLAGS + [
+        "--bulk", "--debug-stream", str(bag["dir"] / "cli_bulk.jsonl")],
+        functools.partial(treplay.replay_bag, bulk_chunk=BULK_CHUNK))
+    return dict(
+        cli=cli, bulk=cli["s"],
+        merged=treplay.replay_bag(bag["bag"], bag["cfg"], "/imu",
+                                  "/points", device="cpu",
+                                  merge_marginalize=True, **KW))
 
 
 def test_bulk_replay_equals_merged_streaming_replay(bag, bulk_runs):

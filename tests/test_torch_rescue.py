@@ -33,9 +33,7 @@ another order move it by ~1e-3 (gate 2e-3).
 """
 
 import copy
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +52,7 @@ from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 
 from test_torch_slice import _close, _jax_state
+from torch_fixtures import build_once, one_thread_then_free_programs  # noqa: F401
 
 LEAF = 0.4
 LM = tsyn.LidarModel(n_rows=16, n_cols=256)
@@ -71,19 +70,6 @@ KICK = (0.85, 0.5, 0.0)        # ~2.5 leaves
 SMALL_KICK = (0.21, 0.125, 0.0)
 KICK_TOL = dict(ba=2e-3, lin_ba=2e-3)    # [m/s^2] (module docstring)
 COUNT_RTOL = 0.01              # the debug row's counts (module docstring)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread_and_free_programs():
-    """One intra-op thread for the module's torch work (the bitwise
-    comparisons), then the XLA:CPU programs this module compiled freed
-    (the reason is in test_torch_core.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")
@@ -115,11 +101,16 @@ def _jax_restore(s, snap):
 
 
 @pytest.fixture(scope="module")
-def steps(data):
+def steps(data, tmp_path_factory):
     """The JAX package with both settings, from its state after init + 5
     scans: a clean step, a small-kick step and a large-kick step, each
     with its state before and after (convert's layout) and its IMU
     index."""
+    return build_once(tmp_path_factory, "test_torch_rescue.steps",
+                      lambda: _jax_steps(data))
+
+
+def _jax_steps(data):
     s = jseq.Sequencer(jseq.SequencerConfig(**SEQ_KW, **BOTH),
                        jwin.WindowConfig(K=K), jvh.VoxelMapConfig(**MAP_KW),
                        jgeo.GeometricConfig(**GEO_KW), dtype=jnp.float32)

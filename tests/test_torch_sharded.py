@@ -46,7 +46,6 @@
 """
 
 import concurrent.futures
-import gc
 import json
 import os
 import socket
@@ -76,20 +75,12 @@ from mimosa_tpu_torch.radar import factor as trad
 
 import torch_sharded_worker as wk
 from test_parallel import room_points
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
 
 RANKS = 4
-WORKER_TIMEOUT = 240     # [s] for the gloo ranks to start, run and exit
+WORKER_TIMEOUT = 70      # [s] for the gloo ranks to start, run and exit
 STRUCTURAL = 0.05        # [m] mesh against single (test_parallel.py:459)
 MAP_INT = ("coords", "occupied", "last_touch", "plane_valid")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.mark.parametrize("cap_log2", [13, 19])
@@ -232,7 +223,6 @@ def ranks(tmp_path_factory):
     np.savez(inputs, **u, **{"map_" + k: v for k, v in stacked_np.items()})
     addr4 = f"tcp://127.0.0.1:{_free_port()}"
     addr1 = f"tcp://127.0.0.1:{_free_port()}"
-    threads = torch.get_num_threads()
     procs = [_spawn(RANKS, r, addr4, tmp / f"out{r}.npz", inputs)
              for r in range(RANKS)]
     procs.append(_spawn(1, 0, addr1, tmp / "ws1.npz"))
@@ -242,13 +232,8 @@ def ranks(tmp_path_factory):
     try:
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             future = pool.submit(_jax_units, u, stacked, jmesh)
-            # one intra-op thread beside the six ranks
-            torch.set_num_threads(1)
-            try:
-                single = wk.replay_stream(wk.exception_path_sequencer(),
-                                          *wk.exception_path_stream())
-            finally:
-                torch.set_num_threads(threads)
+            single = wk.replay_stream(wk.exception_path_sequencer(),
+                                      *wk.exception_path_stream())
             jref = future.result()
         for p in procs:
             _, err = p.communicate(timeout=WORKER_TIMEOUT)
@@ -407,31 +392,26 @@ def test_step_cache_shares_steps_of_one_configuration():
 def test_step_cache_interleaved_equals_separate():
     """Two Sequencers of one configuration fed scan by scan in turns
     through one cache give the bits of each fed alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        datas = [tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
-            t_total=1.5), tsyn.LidarModel(n_rows=16, n_cols=256), seed=s)
-            for s in (0, 1)]
-        cache = {}
-        shared = [wk.exception_path_sequencer(step_cache=cache)
-                  for _ in datas]
-        alone = [wk.exception_path_sequencer() for _ in datas]
-        for s, d in zip(alone, datas):
-            trep.replay(s, d)
-        imu_i = [0, 0]
-        for k in range(max(len(d["scans"]) for d in datas)):
-            for j, (s, d) in enumerate(zip(shared, datas)):
-                if k < len(d["scans"]):
-                    imu_i[j] = trep.feed(s, d, k, imu_i[j])
-        for s, r in zip(shared, alone):
-            assert s.counters == r.counters
-            np.testing.assert_array_equal(
-                np.asarray([p for _, p, _ in s.trajectory]),
-                np.asarray([p for _, p, _ in r.trajectory]))
-        assert len(_steps(cache)) >= 1
-    finally:
-        torch.set_num_threads(n)
+    datas = [tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
+        t_total=1.5), tsyn.LidarModel(n_rows=16, n_cols=256), seed=s)
+        for s in (0, 1)]
+    cache = {}
+    shared = [wk.exception_path_sequencer(step_cache=cache)
+              for _ in datas]
+    alone = [wk.exception_path_sequencer() for _ in datas]
+    for s, d in zip(alone, datas):
+        trep.replay(s, d)
+    imu_i = [0, 0]
+    for k in range(max(len(d["scans"]) for d in datas)):
+        for j, (s, d) in enumerate(zip(shared, datas)):
+            if k < len(d["scans"]):
+                imu_i[j] = trep.feed(s, d, k, imu_i[j])
+    for s, r in zip(shared, alone):
+        assert s.counters == r.counters
+        np.testing.assert_array_equal(
+            np.asarray([p for _, p, _ in s.trajectory]),
+            np.asarray([p for _, p, _ in r.trajectory]))
+    assert len(_steps(cache)) >= 1
 
 
 def test_mesh_sequencer_keeps_its_own_steps():

@@ -15,11 +15,9 @@
 
 import copy
 import dataclasses
-import gc
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,14 +42,7 @@ from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.odometry import factor as todo
 from mimosa_tpu_torch.radar import factor as trad
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
+from torch_fixtures import build_once, one_thread_then_free_programs  # noqa: F401
 
 
 @pytest.mark.parametrize("pair", [
@@ -156,11 +147,16 @@ def _jax_state(s):
 
 
 @pytest.fixture(scope="module", params=sorted(CODECS))
-def jax_replay(request):
+def jax_replay(request, tmp_path_factory):
     """The short room replay through the JAX package with one of
     ``CODECS``, with its state snapshot before and after the
     (N_CARRY+1)-th scan."""
-    codec = request.param
+    return build_once(tmp_path_factory,
+                      f"test_torch_slice.jax_replay.{request.param}",
+                      lambda: _jax_replay(request.param))
+
+
+def _jax_replay(codec):
     data = tsyn.generate(tsyn.room_world(), tsyn.TrajectoryConfig(
         t_total=3.0), tsyn.LidarModel(**LIDAR), seed=0)
     s = jseq.Sequencer(jseq.SequencerConfig(**SEQ_KW, **CODECS[codec]),
@@ -309,7 +305,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         # PyYAML only inside config.loader.load_reference_yaml
         "assert 'yaml' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=30)
     assert proc.returncode == 0, proc.stderr
 
 
@@ -366,7 +362,7 @@ def test_replay_cli_defaults_to_the_card():
             "runpy.run_module('mimosa_tpu_torch.io.synthetic_replay', "
             "run_name='__main__')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=40)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
 

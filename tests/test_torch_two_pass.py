@@ -18,9 +18,7 @@
 """
 
 import copy
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,16 +38,9 @@ from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.utils import evaluation as tev
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 ATE_GATE, RTE_GATE = 0.080, 0.5      # room_noisy's gates [m], [%]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _map_bits(vmap):
@@ -242,26 +233,21 @@ def _bulk_seq(freeze, init_map=None, **kw):
 
 
 def test_frozen_bulk_equals_frozen_streaming():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        data = tsyn.generate(tsyn.room_world(),
-                             tsyn.TrajectoryConfig(t_total=2.5),
-                             tsyn.LidarModel(n_rows=16, n_cols=256), seed=0)
-        s1 = _bulk_seq(False)
-        trep.replay(s1, data)
-        vmap = _map_bits(s1.vmap)
-        imu = data["imu"]
-        stream = _bulk_seq(True, s1.vmap, merge_marginalize=True)
-        stream.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
-        for sc in data["scans"]:
-            stream.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
-                            sc["valid"])
-        bulk = _bulk_seq(True, s1.vmap)
-        bulk.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
-        bulk.add_scans_bulk(data["scans"], chunk=8)
-    finally:
-        torch.set_num_threads(n)
+    data = tsyn.generate(tsyn.room_world(),
+                         tsyn.TrajectoryConfig(t_total=2.5),
+                         tsyn.LidarModel(n_rows=16, n_cols=256), seed=0)
+    s1 = _bulk_seq(False)
+    trep.replay(s1, data)
+    vmap = _map_bits(s1.vmap)
+    imu = data["imu"]
+    stream = _bulk_seq(True, s1.vmap, merge_marginalize=True)
+    stream.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    for sc in data["scans"]:
+        stream.add_scan(sc["ts_header"], sc["points"], sc["t_rel"],
+                        sc["valid"])
+    bulk = _bulk_seq(True, s1.vmap)
+    bulk.add_imu_batch(imu["ts"], imu["acc"], imu["gyro"])
+    bulk.add_scans_bulk(data["scans"], chunk=8)
     assert bulk.bulk_counts["chunks"] >= 1 and \
         bulk.bulk_counts["codes"][0] > 0
     assert bulk.cfg.freeze_map

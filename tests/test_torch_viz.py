@@ -35,7 +35,6 @@ The replay and CLI debug streams are held against their runs in
 """
 
 import dataclasses
-import gc
 import json
 import os
 import subprocess
@@ -63,6 +62,8 @@ from mimosa_tpu_torch.lidar import geometric as tgeo
 from mimosa_tpu_torch.mapping import voxel_hash as tvh
 from mimosa_tpu_torch.utils import checkpoint as ckpt
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POINT_TOL = 1e-5          # [m] p_w, foot, normal
 PIXEL_TOL = 1e-4          # [px] projected feature centers
@@ -70,15 +71,6 @@ IMG_TOL = 1e-3            # images on the 0-255 scale
 # the stream's calls at each scan step k: a plain emit, a repeated one (the
 # de-duplication) and, every fifth step, a forced one
 CALLS = ((False,), (False,), (True,))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _sequencer():
@@ -329,7 +321,7 @@ def test_feature_overlay_arrays_match_jax(run, tmp_path):
 def _script(name, *args):
     r = subprocess.run([sys.executable, os.path.join(REPO, "scripts", name),
                         *map(str, args)], capture_output=True, text=True,
-                       timeout=120, cwd=REPO)
+                       timeout=30, cwd=REPO)
     assert r.returncode == 0, r.stderr
     return r.stdout
 

@@ -10,7 +10,6 @@ ill-conditioned case, the JAX test's gate).
 """
 
 import functools
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -24,17 +23,10 @@ from mimosa_tpu_torch import convert
 from mimosa_tpu_torch.graph import window as twin
 from mimosa_tpu_torch.imu import preintegration as tpre
 
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
+
 j_preint = jax.jit(jpre.preintegrate, static_argnames=(
     "acc_var", "gyro_var", "int_var"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def _close(out, ref, rtol=1e-4, floor=1e-5):

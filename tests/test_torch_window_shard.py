@@ -19,7 +19,6 @@ JAX test's ``dense_gn_step``) and into the port's ``distributed_gn_step``:
   measurements of every fourth state (the JAX test's gates).
 """
 
-import gc
 import os
 import socket
 import subprocess
@@ -40,20 +39,12 @@ from mimosa_tpu_torch.parallel import window_shard as tws
 
 import test_window_shard as jtest
 from test_window import simulate
+from torch_fixtures import one_thread_then_free_programs  # noqa: F401
 
 K = jtest.K
 DEAD = 5                 # the dead IMU segment (test_window_shard.py)
 RANKS = 4
-WORKER_TIMEOUT = 120     # [s] for the gloo ranks to start, solve and exit
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_compiled_programs():
-    """Free the XLA:CPU programs this module compiled (the reason is in
-    test_torch_core.py)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
+WORKER_TIMEOUT = 40      # [s] for the gloo ranks to start, solve and exit
 
 
 def _batch(seed=0, state_noise=0.0):
